@@ -1,0 +1,96 @@
+"""Build and load the hand-written CUDA kernels of `kernels/csrc`.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with `ctypes`: no PyTorch headers
+and no ``ninja``, so a build takes seconds.  The library lands in
+``kernels/_build/<hash of the sources>/`` (listed in ``.gitignore``); a
+change to any source changes the hash and so rebuilds on first use.
+
+Nothing here runs at import: `library()` builds on its first call, which
+only a launch on a CUDA tensor makes.  A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-shared"]
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)"
+                       ": the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile the sources into ``_build/<hash>/librow_kernels.so`` unless
+    that file exists; returns its path."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / "librow_kernels.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp,
+           *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i64 = ctypes.c_void_p, ctypes.c_longlong
+        lib.embed_gather_launch.argtypes = [p, p, p, i64, i64, i64, p]
+        lib.embed_gather_launch.restype = ctypes.c_int
+        lib.pm_combine_launch.argtypes = [p, p, p, p, p, p, i64, i64, p]
+        lib.pm_combine_launch.restype = ctypes.c_int
+        lib.row_kernels_error_string.argtypes = [ctypes.c_int]
+        lib.row_kernels_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a launcher reported a CUDA error."""
+    if err != 0:
+        msg = library().row_kernels_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

@@ -1,0 +1,190 @@
+"""Intent-managed embedding, serving half (the twin of
+`repro/pm/embedding.py`).
+
+A per-device *replica cache* holds the rows the planner decided to
+replicate; lookups take two paths:
+
+  hit  : the row is in the replica cache -> pure local read, no collective;
+  miss : the row is only on its owner shard -> the *unique* missed ids are
+         deduplicated and compacted into a fixed-capacity buffer (capacity
+         M is known in advance from intent, bucketed) and only that (M, D)
+         buffer moves through the backend's vocab-parallel collective.
+
+The serving runtime runs the whole index stage on the host at admission
+(`probe_host` / `CacheProbeView`), so the device does pure data movement
+(`planned_serve_lookup`): ``kernel=True`` gathers the miss buffer with the
+`embed_gather` kernel and selects each token's row with the `pm_combine`
+kernel.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.pm_forward import host_compact
+from repro_torch.pm.collectives import resolve
+
+
+def combine_miss_buffer(backend, table, cache_rows, hit, cache_slot,
+                        buf_ids, buf_slot, *, kernel: bool = False):
+    """THE shared managed-lookup data path: move the compact unique-miss
+    buffer through the backend's vocab-parallel collective, append the
+    all-zero trash row (slot M — overflow tokens land there), and
+    per-token combine: hits read the local replica cache, misses read the
+    buffer.  Returns (T, D) rows."""
+    buf_rows = resolve(backend).gather_rows(table, buf_ids, kernel=kernel)
+    buffer = torch.cat([buf_rows, buf_rows.new_zeros((1, table.shape[1]))])
+    return ops.pm_combine(hit, cache_slot, buf_slot, cache_rows, buffer,
+                          use_kernel=kernel)
+
+
+def plain_serve_lookup(table, tokens, *, n_shards: int = 1, backend=None):
+    """Unmanaged serving baseline: every token's row moves through the
+    vocab-parallel collective (the dense (T, D) partial-sum)."""
+    B, K = tokens.shape
+    tok = tokens.reshape(B * K)
+    out = resolve(backend, n_shards).gather_rows(table, tok)
+    return out.reshape(B, K, -1)
+
+
+class HostProbe(NamedTuple):
+    """Host-side index stage of the serving lookup (all numpy)."""
+
+    hit: np.ndarray         # (T,) bool, token served by the replica cache
+    cache_slot: np.ndarray  # (T,) int32 cache row (clipped; valid on hit)
+    buf_ids: np.ndarray     # (M,) int32 unique missed ids asc (pad: 0)
+    buf_slot: np.ndarray    # (T,) int32 buffer slot per token (M = trash)
+    overflow: np.ndarray    # (T,) bool, unique misses beyond capacity
+    n_miss: int             # unique missed ids (may exceed M)
+
+
+def probe_host(cache_ids, tok, miss_capacity: int, *,
+               owner_shards: int = 0, route_capacity: int = 0,
+               vocab: int = 0) -> HostProbe:
+    """The serving runtime's admission-time index stage (numpy).
+
+    ``owner_shards`` / ``route_capacity`` / ``vocab`` (all three required
+    to engage) additionally flag *per-owner* overflow for the mesh
+    backend's routed miss path (DESIGN.md §12): a unique missed id whose
+    rank within its owner shard (owner = id // (V / owner_shards); the
+    compact ids are ascending, so ranks are positional) reaches
+    ``route_capacity`` would not fit the routed per-destination block, and
+    every token reading its slot gets its ``overflow`` flag set — the
+    runtime re-queues those requests exactly like global-capacity
+    overflow, so admission capacity matches the per-owner buffers the
+    routed collective actually has.
+
+    On the serving hot path the scheduler holds the batch's token ids on
+    the host the moment the batch is formed (they came out of the request
+    queue) — so the whole index stage (probe, dedup, compact, overflow
+    flags) runs here in numpy at admission time, and the device executes
+    pure data movement (`planned_serve_lookup`); it also means
+    miss-rate/overflow drift feedback needs no device readback at all.
+
+    This IS `pm_forward._compact_math` (`pm_forward.host_compact`)."""
+    r = host_compact(cache_ids, tok, miss_capacity)
+    overflow = r["overflow"]
+    if owner_shards > 0 and route_capacity > 0 and vocab > 0:
+        overflow = _route_overflow(r["hit"], r["buf_ids"], r["buf_slot"],
+                                   overflow, int(r["n_miss"]),
+                                   owner_shards, route_capacity, vocab)
+    return HostProbe(r["hit"], r["cache_slot"], r["buf_ids"],
+                     r["buf_slot"], overflow, int(r["n_miss"]))
+
+
+def _route_overflow(hit, buf_ids, buf_slot, overflow, n_miss: int,
+                    owner_shards: int, route_capacity: int,
+                    vocab: int) -> np.ndarray:
+    """Per-owner overflow flags for the routed miss path (DESIGN.md §12),
+    shared by `probe_host` and `CacheProbeView`: a unique missed id whose
+    rank within its owner shard reaches ``route_capacity`` would not fit
+    the routed per-destination block.  The compact ids are ascending, so
+    each owner's ids are one contiguous run and rank-within-owner is
+    positional (the device router's layout)."""
+    M = buf_ids.shape[0]
+    nm = min(int(n_miss), M)
+    ids = np.asarray(buf_ids[:nm], dtype=np.int64)
+    block = -(-vocab // owner_shards)
+    starts = np.searchsorted(ids, np.arange(owner_shards,
+                                            dtype=np.int64) * block)
+    rank = np.arange(nm) - starts[np.minimum(ids // block,
+                                             owner_shards - 1)]
+    slot_over = np.zeros(M + 1, dtype=bool)
+    slot_over[:nm] = rank >= min(route_capacity, M)
+    return overflow | (slot_over[buf_slot] & ~hit)
+
+
+class CacheProbeView:
+    """Memoized host probe for ONE cache generation.
+
+    `probe_host` re-derives the probe from scratch on every batch — one
+    argsort of the batch tokens PLUS a binary search of every token
+    against the sorted cache ids — even though the cache ids only change
+    once per refresh/replan round.  This view pays one O(V) lookup-table
+    build when the cache generation changes and then probes each batch
+    with two vectorized table reads; the only per-batch sort left is the
+    `np.unique` over the batch's missed tokens, which any compaction
+    needs.  Every `HostProbe` field is byte-identical to `probe_host`
+    — `np.unique` returns the missed
+    ids ascending with duplicates sharing one inverse slot, exactly
+    `_compact_math`'s miss-group ranks."""
+
+    def __init__(self, cache_ids: np.ndarray, vocab: int):
+        cache_ids = np.asarray(cache_ids)
+        self.cache_ids = cache_ids
+        self.vocab = int(vocab)
+        C = cache_ids.shape[0]
+        vals = np.arange(self.vocab, dtype=cache_ids.dtype)
+        if C:
+            slot = np.clip(np.searchsorted(cache_ids, vals),
+                           0, C - 1).astype(np.int32)
+            self._slot_lut = slot
+            self._hit_lut = cache_ids[slot] == vals
+        else:
+            self._slot_lut = np.zeros(self.vocab, np.int32)
+            self._hit_lut = np.zeros(self.vocab, bool)
+
+    def probe(self, tok, miss_capacity: int, *, owner_shards: int = 0,
+              route_capacity: int = 0) -> HostProbe:
+        """`probe_host(self.cache_ids, tok, ...)`, via the LUTs."""
+        tok = np.asarray(tok, dtype=np.int32)
+        T = tok.shape[0]
+        M = miss_capacity
+        cache_slot = self._slot_lut[tok]
+        hit = self._hit_lut[tok]
+        miss = ~hit
+        uniq, inverse = np.unique(tok[miss], return_inverse=True)
+        n_miss = int(uniq.shape[0])
+        k = min(n_miss, M)
+        buf_ids = np.zeros(M, np.int32)
+        buf_ids[:k] = uniq[:k]
+        buf_slot = np.full(T, M, np.int32)
+        buf_slot[miss] = np.where(inverse < M, inverse, M).astype(np.int32)
+        overflow = np.zeros(T, bool)
+        overflow[miss] = inverse >= M
+        if owner_shards > 0 and route_capacity > 0 and self.vocab > 0:
+            overflow = _route_overflow(hit, buf_ids, buf_slot, overflow,
+                                       n_miss, owner_shards,
+                                       route_capacity, self.vocab)
+        return HostProbe(hit, cache_slot, buf_ids, buf_slot, overflow,
+                         n_miss)
+
+
+
+def planned_serve_lookup(table, cache_rows, buf_ids, hit, cache_slot,
+                         buf_slot, *, n_shards: int = 1,
+                         kernel: bool = False, backend=None):
+    """Device data path of the serving lookup, with the index stage
+    already done (`probe_host` at admission — intent means the host knows
+    the batch's miss set before the batch runs).  Only the (M+1, D)
+    compact buffer moves through the backend's vocab-parallel collective;
+    hits read the local replica cache; overflow slots read the all-zero
+    trash row (``buf_slot == M``) and their requests are re-queued by the
+    runtime, never served.  Returns (T, D) rows."""
+    return combine_miss_buffer(resolve(backend, n_shards), table,
+                               cache_rows, hit, cache_slot, buf_ids,
+                               buf_slot, kernel=kernel)

@@ -5,7 +5,8 @@ manifest of leaf paths, dtypes, shapes and the step — the format of
 `repro/ckpt/checkpoint.py`, read and written here without JAX, so a table
 the JAX package saves is served by this package unchanged.  Leaves are
 ordered and named as JAX's tree flattening names them: dict keys sorted,
-list and tuple entries by index, path parts joined with ``/``.  bfloat16
+NamedTuple fields in order as ``.<field>`` (the optimizer states), list and
+tuple entries by index, path parts joined with ``/``.  bfloat16
 leaves are stored as 2-byte void words (``<V2``) with dtype ``bfloat16``
 in the manifest, as numpy writes them for the JAX package.
 """
@@ -27,6 +28,9 @@ def _flatten(tree: Any, prefix: Tuple[str, ...] = ()
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
                 for kv in _flatten(tree[k], prefix + (str(k),))]
+    if hasattr(tree, "_fields"):
+        return [kv for k in tree._fields
+                for kv in _flatten(getattr(tree, k), prefix + ("." + k,))]
     if isinstance(tree, (list, tuple)):
         return [kv for i, v in enumerate(tree)
                 for kv in _flatten(v, prefix + (str(i),))]
@@ -38,6 +42,10 @@ def _unflatten(like: Any, leaves: Dict[str, Any],
     if isinstance(like, dict):
         return {k: _unflatten(v, leaves, prefix + (str(k),))
                 for k, v in like.items()}
+    if hasattr(like, "_fields"):
+        return type(like)(*(_unflatten(getattr(like, k), leaves,
+                                       prefix + ("." + k,))
+                            for k in like._fields))
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(v, leaves, prefix + (str(i),))
                           for i, v in enumerate(like))

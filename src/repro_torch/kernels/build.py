@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of `kernels/csrc`.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with `ctypes`: no PyTorch headers
-and no ``ninja``, so a build takes seconds.  The library lands in
+Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all
+of them at once in parallel processes, and the objects are linked into one
+shared library with a plain C interface, loaded with `ctypes`: no PyTorch
+headers and no ``ninja``, so a build takes seconds.  The library lands in
 ``kernels/_build/<hash of the sources>/`` (listed in ``.gitignore``); a
 change to any source changes the hash and so rebuilds on first use.
 
@@ -24,7 +25,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-shared"]
+NVCC_FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -52,6 +53,18 @@ def nvcc_path() -> str:
                        ": the CUDA kernels cannot be built")
 
 
+def _run(cmds: list) -> None:
+    """Run the commands in parallel; raise with the first failure's
+    output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    for cmd, out, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the sources into ``_build/<hash>/librow_kernels.so`` unless
     that file exists; returns its path."""
@@ -60,16 +73,15 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp,
-           *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    nvcc = nvcc_path()
+    objs = [tmp_dir / f"{src.stem}.o" for src in sources()]
+    _run([[nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+          for src, obj in zip(sources(), objs)])
+    tmp = tmp_dir / lib.name
+    _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, lib)
+    shutil.rmtree(tmp_dir)
     return lib
 
 
@@ -83,6 +95,12 @@ def library() -> ctypes.CDLL:
         lib.embed_gather_launch.restype = ctypes.c_int
         lib.pm_combine_launch.argtypes = [p, p, p, p, p, p, i64, i64, p]
         lib.pm_combine_launch.restype = ctypes.c_int
+        lib.scatter_rows_launch.argtypes = [p, p, p, i64, i64, i64, p]
+        lib.scatter_rows_launch.restype = ctypes.c_int
+        lib.adagrad_rows_launch.argtypes = [p, p, p, p, i64, i64, i64,
+                                            ctypes.c_float, ctypes.c_float,
+                                            ctypes.c_int, p]
+        lib.adagrad_rows_launch.restype = ctypes.c_int
         lib.row_kernels_error_string.argtypes = [ctypes.c_int]
         lib.row_kernels_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,4 +1,4 @@
-// Row-copy kernels of the intent-managed serving path, for sm_90a.
+// Row-copy kernels of the intent-managed lookup, for sm_90a.
 //
 // embed_gather  replaces repro/kernels/embed_gather.py::_gather_kernel:
 //               out[i, :] = table[ids[i], :]; an id outside [0, V) writes a
@@ -7,8 +7,15 @@
 // pm_combine    replaces repro/kernels/pm_forward.py::_combine_kernel:
 //               out[t, :] = hit[t] ? cache[cslot[t], :] : buf[bslot[t], :];
 //               only the winning row is read.
+// scatter_rows  replaces repro/kernels/scatter_rows.py::_scatter_kernel:
+//               base[ids[i], :] = rows[i, :] in place (the lookup's
+//               backward writes segment-summed gradient rows into a zero
+//               (V + 1, D) buffer); an id outside [0, R) writes nothing.
+//               Ids are unique apart from pads aimed at the trash row V,
+//               whose rows are all zero: those writes race, but every one
+//               carries the same bits, so the result is defined.
 //
-// Both move bytes and do no arithmetic on them: rows are copied as raw
+// All three move bytes and do no arithmetic on them: rows are copied as raw
 // words, so bf16 and fp32 come out bit for bit.  They are bound by memory
 // traffic (each output row is one row read plus one row written), so the
 // design is about keeping many independent 16-byte loads in flight: a
@@ -77,6 +84,19 @@ gather_kernel(const W* __restrict__ table, const int32_t* __restrict__ ids,
 
 template <typename W>
 __global__ void __launch_bounds__(kLanes * kRowsPerBlock)
+scatter_kernel(W* __restrict__ base, const int32_t* __restrict__ ids,
+               const W* __restrict__ rows, int64_t n, int64_t R,
+               int64_t words) {
+  const int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.y;
+  if (row >= n) return;
+  const int64_t id = ids[row];
+  if (id < 0 || id >= R) return;
+  const int64_t c0 = (int64_t)blockIdx.y * kChunk + threadIdx.x;
+  copy_row(base + id * words, rows + row * words, c0, words);
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kLanes * kRowsPerBlock)
 combine_kernel(const int32_t* __restrict__ hit,
                const int32_t* __restrict__ cslot,
                const int32_t* __restrict__ bslot,
@@ -122,6 +142,15 @@ void launch_combine(const int32_t* hit, const int32_t* cslot,
   const int64_t words = row_bytes / (int64_t)sizeof(W);
   combine_kernel<W><<<grid_for(T, words), kBlock, 0, stream>>>(
       hit, cslot, bslot, (const W*)cache, (const W*)buf, (W*)out, T, words);
+}
+
+template <typename W>
+void launch_scatter(void* base, const int32_t* ids, const void* rows,
+                    int64_t n, int64_t R, int64_t row_bytes,
+                    cudaStream_t stream) {
+  const int64_t words = row_bytes / (int64_t)sizeof(W);
+  scatter_kernel<W><<<grid_for(n, words), kBlock, 0, stream>>>(
+      (W*)base, ids, (const W*)rows, n, R, words);
 }
 
 // Rows wider than 65535 chunks would overflow the grid's second axis.
@@ -178,6 +207,25 @@ int pm_combine_launch(const void* hit, const void* cslot, const void* bslot,
       break;
     default:
       launch_combine<uint16_t>(h, cs, bs, cache, buf, out, T, row_bytes, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// base (R, D) written in place and rows (n, D), rows of row_bytes bytes;
+// ids (n,) int32.  Returns a cudaError_t.
+int scatter_rows_launch(void* base, const void* ids, const void* rows,
+                        long long n, long long R, long long row_bytes,
+                        void* stream) {
+  if (n == 0 || row_bytes == 0) return (int)cudaSuccess;
+  if (row_bytes % 2 != 0 || !grid_ok(n, row_bytes))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* id = (const int32_t*)ids;
+  switch (word_bytes(row_bytes, (uintptr_t)base | (uintptr_t)rows)) {
+    case 16: launch_scatter<uint4>(base, id, rows, n, R, row_bytes, s); break;
+    case 8: launch_scatter<uint2>(base, id, rows, n, R, row_bytes, s); break;
+    case 4: launch_scatter<uint32_t>(base, id, rows, n, R, row_bytes, s); break;
+    default: launch_scatter<uint16_t>(base, id, rows, n, R, row_bytes, s);
   }
   return (int)cudaGetLastError();
 }

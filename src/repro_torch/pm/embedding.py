@@ -1,5 +1,4 @@
-"""Intent-managed embedding, serving half (the twin of
-`repro/pm/embedding.py`).
+"""Intent-managed embedding (the twin of `repro/pm/embedding.py`).
 
 A per-device *replica cache* holds the rows the planner decided to
 replicate; lookups take two paths:
@@ -10,23 +9,58 @@ replicate; lookups take two paths:
          M is known in advance from intent, bucketed) and only that (M, D)
          buffer moves through the backend's vocab-parallel collective.
 
+Training (`pm_lookup`, a `torch.autograd.Function`) probes on the device
+from the step's one sort (`pm_forward.step_residual`); the forward saves
+the sort residual, and the backward pre-sums duplicate token gradients
+with it and writes them into the table gradient (``kernel=True``: the
+`scatter_rows` kernel) without sorting again.  Gradients never flow into
+the replica cache; it is re-gathered from the table once per refresh
+round (`make_state` / `refresh_cache`).
+
 The serving runtime runs the whole index stage on the host at admission
 (`probe_host` / `CacheProbeView`), so the device does pure data movement
-(`planned_serve_lookup`): ``kernel=True`` gathers the miss buffer with the
-`embed_gather` kernel and selects each token's row with the `pm_combine`
-kernel.
+(`planned_serve_lookup`).  In both, ``kernel=True`` gathers the miss
+buffer with the `embed_gather` kernel and selects each token's row with
+the `pm_combine` kernel.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.pm_forward import host_compact
+from repro_torch.kernels.pm_forward import (SortResidual, StepResidual,
+                                            host_compact, step_residual)
 from repro_torch.pm.collectives import resolve
+
+
+class EmbedPMState(NamedTuple):
+    """Device-side state of the intent-managed embedding."""
+
+    table: torch.Tensor       # (V, D)
+    cache_ids: torch.Tensor   # (C,) int32, SORTED; padded with V (no match)
+    cache_rows: torch.Tensor  # (C, D)
+
+
+def make_state(table: torch.Tensor, cache_ids: torch.Tensor,
+               backend=None) -> EmbedPMState:
+    """Build state with a freshly synchronized cache.  ``cache_ids`` must
+    be sorted ascending; pad slots use V (matches no token)."""
+    cache_ids = cache_ids.to(torch.int32)
+    cache_rows = resolve(backend).refresh_rows(table, cache_ids)
+    return EmbedPMState(table, cache_ids, cache_rows)
+
+
+def refresh_cache(state: EmbedPMState,
+                  cache_ids: Optional[torch.Tensor] = None,
+                  backend=None) -> EmbedPMState:
+    """Replica sync round: re-gather the hot rows from the table,
+    optionally installing a new plan's ids."""
+    ids = state.cache_ids if cache_ids is None else cache_ids
+    return make_state(state.table, ids, backend)
 
 
 def combine_miss_buffer(backend, table, cache_rows, hit, cache_slot,
@@ -40,6 +74,100 @@ def combine_miss_buffer(backend, table, cache_rows, hit, cache_slot,
     buffer = torch.cat([buf_rows, buf_rows.new_zeros((1, table.shape[1]))])
     return ops.pm_combine(hit, cache_slot, buf_slot, cache_rows, buffer,
                           use_kernel=kernel)
+
+
+def _lookup_impl(table, cache_ids, cache_rows, tokens, miss_capacity,
+                 strict=False, kernel=False, backend=None, residual=None,
+                 n_miss=None):
+    B, S = tokens.shape
+    T = B * S
+    M = min(miss_capacity, T)
+    tok = tokens.reshape(T).to(torch.int32)
+    # probe + dedup/compact: UNIQUE missed ids fill the M intent-planned
+    # slots (duplicates share a slot); computed from the step's one sort,
+    # or reused from the caller's
+    if residual is None:
+        residual = step_residual(cache_ids, tok, M)
+    pc = residual.probe
+    out = combine_miss_buffer(backend, table, cache_rows, pc.hit,
+                              pc.cache_slot, pc.buf_ids, pc.buf_slot,
+                              kernel=kernel)
+    # rare overflow: correctness fallback via a direct (dense) gather.  The
+    # reference branches on the device count (``lax.cond``); reading it
+    # here would stall the host on the device, so the branch takes the
+    # host's count of unique misses (``n_miss``, which the training loop
+    # knows from the loader's intent) and, without one, selects
+    # unconditionally.  ``strict=True`` omits the fallback.
+    if not strict and (n_miss is None or n_miss > M):
+        dense = resolve(backend).gather_rows(table, tok)
+        out = torch.where(pc.overflow[:, None], dense, out)
+    return out.reshape(B, S, table.shape[1]), residual
+
+
+class _PMLookup(torch.autograd.Function):
+    """`pm_lookup` with its custom backward (the reference's
+    ``jax.custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, table, cache_ids, cache_rows, tokens, miss_capacity,
+                strict, kernel, backend, residual, n_miss):
+        out, residual = _lookup_impl(table, cache_ids, cache_rows, tokens,
+                                     miss_capacity, strict, kernel, backend,
+                                     residual, n_miss)
+        # the sort residual rides to the backward so the duplicate
+        # pre-sum never re-sorts the tokens the forward already sorted
+        ctx.save_for_backward(tokens, *residual.sort)
+        ctx.vocab = table.shape[0]
+        ctx.kernel, ctx.backend = kernel, backend
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, order, sorted_ids, slot = ctx.saved_tensors
+        V = ctx.vocab
+        T = tokens.numel()
+        tok = tokens.reshape(T).to(torch.int32)
+        gt = g.reshape(T, g.shape[-1])
+        # ALL row gradients go to the table; the kernel path pre-sums
+        # duplicates into compact slots with the forward's sort residual
+        # (no second sort) and scatters them with the `scatter_rows` kernel
+        be = resolve(ctx.backend)
+        if ctx.kernel:
+            srt = SortResidual(order, sorted_ids, slot)
+            seg_ids, seg_g = ops.segment_rows(tok, gt, n_slots=T, pad_id=V,
+                                              residual=srt)
+            grad_table = be.scatter_row_grads(seg_ids, seg_g.to(gt.dtype),
+                                              V, kernel=True,
+                                              segmented=True)
+        else:
+            grad_table = be.scatter_row_grads(tok, gt, V, kernel=False)
+        return (grad_table,) + (None,) * 9
+
+
+def pm_lookup(table, cache_ids, cache_rows, tokens, miss_capacity: int,
+              strict: bool = False, kernel: bool = False, backend=None,
+              residual: Optional[StepResidual] = None,
+              n_miss: Optional[int] = None):
+    """Intent-managed embedding lookup (training mode, differentiable with
+    respect to ``table``).
+
+    table (V, D); cache_ids (C,) sorted; cache_rows (C, D); tokens (B, S).
+    ``miss_capacity``: bound on unique missed ids per call, planned from
+    intent; overflow misses are still served right, by a dense gather
+    (see `_lookup_impl`; ``n_miss`` is the host's unique-miss count).
+    ``kernel=True`` runs the row data path through the hand-written
+    kernels (`embed_gather` + `pm_combine` forward, `scatter_rows`
+    backward).  ``residual``: the step's precomputed `step_residual` for
+    these (cache_ids, tokens); left None, the lookup derives it (still one
+    sort: the backward reuses the forward's).  Returns (B, S, D) rows."""
+    return _PMLookup.apply(table, cache_ids, cache_rows, tokens,
+                           miss_capacity, strict, kernel, backend, residual,
+                           n_miss)
+
+
+def plain_lookup(table, tokens):
+    """Unmanaged lookup (static-partitioning baseline)."""
+    return table[tokens.long()]
 
 
 def plain_serve_lookup(table, tokens, *, n_shards: int = 1, backend=None):

@@ -1,0 +1,138 @@
+"""The training step (the twin of `repro/train/steps.py`).
+
+`make_train_step` returns ``train_step(model, opt_state, batch) -> (loss,
+model, opt_state)``.  The model's parameters and the optimizer state are
+updated in place (the reference donates both buffers to its jitted step
+for the same effect): the (V, D) table and its AdaGrad accumulator are
+never copied.  ``loss`` is a 0-dim device tensor; reading it is the only
+point where the host waits for the step.
+
+Two arms, chosen by the reference's gate ``sparse_embed``:
+
+* **fused sparse** (untied AdaGrad with the managed embedding and
+  ``pm_kernel``): the token rows are gathered once through the managed
+  lookup, the loss is differentiated with respect to those rows (so no
+  (V, D) embedding gradient exists), duplicate rows are summed by
+  `ops.segment_rows` from the step's sort residual, and the `adagrad_rows`
+  kernel updates exactly the touched rows (`EmulatedBackend.update_rows`);
+* **dense**: autograd through the model, the managed lookup's backward
+  (with ``pm_kernel``: segment + the `scatter_rows` kernel) included, then
+  dense AdaGrad (or Adam) on every parameter.
+
+Single-sort step: the step computes ONE `pm_forward.step_residual` from
+the batch tokens, and every index consumer — forward probe/compact,
+backward duplicate pre-sum, the sparse optimizer — reads it.
+
+fp32 matmuls run in full fp32: TF32 is switched off for matmuls and
+cuDNN when a step is built.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.pm_forward import step_residual
+from repro_torch.models.model import loss_fn
+from repro_torch.optim.optimizers import (adagrad_init, adagrad_update,
+                                          adam_init, adam_update)
+from repro_torch.pm.collectives import resolve
+from repro_torch.pm.embedding import pm_lookup
+
+
+def full_fp32_matmuls() -> None:
+    """Switch TF32 off for fp32 matmuls and convolutions (process-wide)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
+                    lr: float = 0.01, pm_miss_capacity: int = 0,
+                    pm_strict: bool = False, pm_kernel: bool = False,
+                    pm_backend=None) -> Callable:
+    """Returns train_step(model, opt_state, batch) -> (loss, model, state).
+
+    ``pm_miss_capacity > 0`` activates the intent-managed embedding path
+    (batch must then carry ``pm_cache_ids`` / ``pm_cache_rows``, and may
+    carry the host's unique-miss count ``pm_n_miss``); ``pm_kernel``
+    routes the lookup and the embedding update through the hand-written
+    kernels."""
+    full_fp32_matmuls()
+    update = adagrad_update if optimizer == "adagrad" else adam_update
+    # sparse row updates need the gradient support to be exactly the batch
+    # tokens: tied embeddings receive dense head gradients, so they keep
+    # the dense optimizer sweep
+    mesh_real = getattr(pm_backend, "mesh_real", False)
+    sparse_embed = (pm_miss_capacity > 0 and optimizer == "adagrad"
+                    and not cfg.tie_embeddings
+                    and (pm_kernel or mesh_real))
+
+    def run_loss(model, batch, residual, embed_rows=None):
+        logits, aux, _ = model(batch, pm_miss_capacity=pm_miss_capacity,
+                               pm_strict=pm_strict, pm_kernel=pm_kernel,
+                               pm_backend=pm_backend, pm_residual=residual,
+                               embed_rows=embed_rows)
+        return loss_fn(logits, batch["labels"], aux)
+
+    def train_step(model, opt_state, batch):
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        T = B * S
+        tok = tokens.reshape(T).to(torch.int32)
+        pm_on = pm_miss_capacity > 0 and "pm_cache_ids" in batch
+        # THE step's one sort: probe/compact + full-token segmentation
+        residual = step_residual(batch["pm_cache_ids"], tok,
+                                 min(pm_miss_capacity, T)) if pm_on else None
+        params = dict(model.named_parameters())
+        model.zero_grad(set_to_none=True)
+
+        if not sparse_embed:
+            loss = run_loss(model, batch, residual)
+            loss.backward()
+            grads = {k: p.grad for k, p in params.items()}
+            update(grads, opt_state, params, lr=lr)
+            return loss.detach(), model, opt_state
+
+        # fused sparse path: gather the token rows ONCE, then differentiate
+        # the loss with respect to those rows — the lookup's backward (and
+        # with it any dense (V, D) gradient buffer) never runs
+        emb = model.embed
+        with torch.no_grad():
+            if pm_on:
+                h0 = pm_lookup(emb, batch["pm_cache_ids"],
+                               batch["pm_cache_rows"], tokens,
+                               min(pm_miss_capacity, T), pm_strict,
+                               pm_kernel, pm_backend, residual,
+                               batch.get("pm_n_miss"))
+            else:
+                h0 = emb[tokens.long()]
+        h0.requires_grad_(True)
+        loss = run_loss(model, batch, residual, embed_rows=h0)
+        loss.backward()
+        rest = {k: p for k, p in params.items() if k != "embed"}
+        adagrad_update({k: p.grad for k, p in rest.items()}, opt_state,
+                       rest, lr=lr)
+        # fused sparse AdaGrad on exactly the touched (unique) rows, where
+        # the row lives (`EmulatedBackend.update_rows`: the `adagrad_rows`
+        # kernel, pads skipped)
+        V = cfg.vocab_size
+        gt = h0.grad.reshape(T, emb.shape[1])
+        seg_ids, seg_g = ops.segment_rows(
+            tok, gt, n_slots=T, pad_id=V,
+            residual=residual.sort if residual is not None else None)
+        with torch.no_grad():
+            resolve(pm_backend).update_rows(
+                emb, opt_state.accum["embed"], seg_ids, seg_g, lr=lr,
+                kernel=pm_kernel)
+        return loss.detach(), model, opt_state
+
+    return train_step
+
+
+def make_opt_init(optimizer: str = "adagrad") -> Callable:
+    """``init(model) -> state`` over the model's named parameters."""
+    init = adagrad_init if optimizer == "adagrad" else adam_init
+    return lambda model: init(dict(model.named_parameters()))

@@ -104,4 +104,5 @@ def test_cpu_path_counts_no_launches():
     ops.pm_combine(torch.ones(2, dtype=torch.int32),
                    torch.zeros(2, dtype=torch.int32),
                    torch.zeros(2, dtype=torch.int32), table, table)
-    assert ops.launch_counts() == {"embed_gather": 0, "pm_combine": 0}
+    assert ops.launch_counts() == {"embed_gather": 0, "pm_combine": 0,
+                                   "adagrad_rows": 0, "scatter_rows": 0}

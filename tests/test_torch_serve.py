@@ -132,7 +132,8 @@ def test_stream_matches_jax(scenario):
 def test_cpu_run_launches_no_kernels():
     ops.reset_launch_counts()
     run_pair(*CASES["depth1-shards1"])
-    assert ops.launch_counts() == {"embed_gather": 0, "pm_combine": 0}
+    assert ops.launch_counts() == {"embed_gather": 0, "pm_combine": 0,
+                                   "adagrad_rows": 0, "scatter_rows": 0}
 
 
 def test_default_device_is_the_card():

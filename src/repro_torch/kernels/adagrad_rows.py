@@ -15,9 +15,11 @@ from __future__ import annotations
 
 import torch
 
-from . import build
-from .embed_gather import index_operand
+from .launch import as_int32, index_operand, launcher
 from .ref import adagrad_row_update_ref
+
+_launch = launcher("adagrad_rows_launch",
+                   "table accum grads ids n V D lr eps table_bf16")
 
 
 def adagrad_row_update(table: torch.Tensor, accum: torch.Tensor,
@@ -30,9 +32,33 @@ def adagrad_row_update(table: torch.Tensor, accum: torch.Tensor,
     ``[0, V)`` apart from skipped pads, grads (n, D).  On CPU tensors this
     is the plain version; on CUDA tensors it launches the kernel (and
     raises if the build or the launch fails)."""
-    if table.device.type == "cpu":
+    if table.is_cpu:
         return adagrad_row_update_ref(table, accum, ids, grads, lr=lr,
                                       eps=eps)
+    dev = table.get_device()
+    n = ids.shape[0]
+    if not (accum.get_device() == ids.get_device() == grads.get_device()
+            == dev and table.ndim == accum.ndim == grads.ndim == 2
+            and ids.ndim == 1 and table.is_contiguous()
+            and accum.is_contiguous() and accum.dtype == torch.float32
+            and table.dtype in (torch.float32, torch.bfloat16)
+            and accum.shape == table.shape
+            and grads.shape == (n, table.shape[1])):
+        _reject(table, accum, ids, grads)
+    ids = as_int32(ids)
+    if grads.dtype != torch.float32 or not grads.is_contiguous():
+        grads = grads.float().contiguous()
+    V, D = table.shape
+    if n and D:
+        _launch(dev, table.data_ptr(), accum.data_ptr(), grads.data_ptr(),
+                ids.data_ptr(), n, V, D, lr, eps,
+                table.dtype is torch.bfloat16)
+        adagrad_row_update.launches += 1
+    return table, accum
+
+
+def _reject(table, accum, ids, grads) -> None:
+    """Raise the precise error for operands the kernel does not take."""
     dev = table.device
     name = "adagrad_rows"
     if table.dtype not in (torch.float32, torch.bfloat16):
@@ -43,20 +69,8 @@ def adagrad_row_update(table: torch.Tensor, accum: torch.Tensor,
         if t.device != dev or t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"{name}: table and accum must be contiguous "
                              f"2-D tensors on {dev}")
-    ids = index_operand(name, dev, ids)
-    V, D = table.shape
-    if grads.device != dev or grads.shape != (ids.shape[0], D):
-        raise ValueError(f"{name}: grads must be (n, D) on {dev}")
-    grads = grads.float().contiguous()
-    with torch.cuda.device(dev):
-        err = build.library().adagrad_rows_launch(
-            table.data_ptr(), accum.data_ptr(), grads.data_ptr(),
-            ids.data_ptr(), ids.shape[0], V, D, lr, eps,
-            int(table.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, name)
-    adagrad_row_update.launches += 1
-    return table, accum
+    index_operand(name, dev, ids)
+    raise ValueError(f"{name}: grads must be (n, D) on {dev}")
 
 
 adagrad_row_update.launches = 0

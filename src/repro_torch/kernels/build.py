@@ -4,8 +4,8 @@ Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all
 of them at once in parallel processes, and the objects are linked into one
 shared library with a plain C interface, loaded with `ctypes`: no PyTorch
 headers and no ``ninja``, so a build takes seconds.  The library lands in
-``kernels/_build/<hash of the sources>/`` (listed in ``.gitignore``); a
-change to any source changes the hash and so rebuilds on first use.
+``kernels/_build/<hash>/`` (listed in ``.gitignore``), the hash taken over
+the sources and headers: a change to any of them rebuilds on first use.
 
 Nothing here runs at import: `library()` builds on its first call, which
 only a launch on a CUDA tensor makes.  A failed build raises.
@@ -27,6 +27,11 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 
+
+LAUNCHERS = ("embed_gather_launch", "pm_combine_launch",
+             "scatter_rows_launch", "segment_scatter_rows_launch",
+             "adagrad_rows_launch")
+
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -36,7 +41,7 @@ def sources() -> list:
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for p in sources():
+    for p in sorted(CSRC.glob("*.h")) + sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
@@ -90,17 +95,18 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.embed_gather_launch.argtypes = [p, p, p, i64, i64, i64, p]
-        lib.embed_gather_launch.restype = ctypes.c_int
-        lib.pm_combine_launch.argtypes = [p, p, p, p, p, p, i64, i64, p]
-        lib.pm_combine_launch.restype = ctypes.c_int
-        lib.scatter_rows_launch.argtypes = [p, p, p, i64, i64, i64, p]
-        lib.scatter_rows_launch.restype = ctypes.c_int
-        lib.adagrad_rows_launch.argtypes = [p, p, p, p, i64, i64, i64,
-                                            ctypes.c_float, ctypes.c_float,
-                                            ctypes.c_int, p]
-        lib.adagrad_rows_launch.restype = ctypes.c_int
+        # each launcher takes one packed block of 8-byte arguments and the
+        # stream; <launcher>_args describes the block (see
+        # `launch.launcher`)
+        for name in LAUNCHERS:
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            getattr(lib, name + "_args").restype = ctypes.c_char_p
+        lib.embed_gather_path.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_longlong,
+                                          ctypes.c_longlong]
+        lib.embed_gather_path.restype = ctypes.c_int
         lib.row_kernels_error_string.argtypes = [ctypes.c_int]
         lib.row_kernels_error_string.restype = ctypes.c_char_p
         _lib = lib

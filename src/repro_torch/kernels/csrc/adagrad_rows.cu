@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_args.h"
+
 namespace {
 
 constexpr int kLanes = 32;
@@ -189,23 +191,28 @@ int launch(void* table, float* accum, const float* grads, const int32_t* ids,
 
 }  // namespace
 
+// The launcher's argument block (launch_args.h).
+#define ADAGRAD_ARGS(X)                                                 \
+  X(void*, table, p) X(float*, accum, p) X(const float*, grads, p)      \
+  X(const int32_t*, ids, p) X(long long, n, i) X(long long, V, i)       \
+  X(long long, D, i) X(double, lr, d) X(double, eps, d)                 \
+  X(long long, table_bf16, i)
+LAUNCH_ARGS(AdagradArgs, ADAGRAD_ARGS, adagrad_rows_launch_args)
+
 extern "C" {
 
 // table (V, D) fp32 (table_bf16 == 0) or bf16 (table_bf16 == 1), accum
-// (V, D) fp32, both updated in place; grads (n, D) fp32; ids (n,) int32.
-// Returns a cudaError_t.
-int adagrad_rows_launch(void* table, void* accum, const void* grads,
-                        const void* ids, long long n, long long V,
-                        long long D, float lr, float eps, int table_bf16,
-                        void* stream) {
-  if (n == 0 || D == 0) return (int)cudaSuccess;
+// (V, D) fp32, both updated in place; grads (n, D) fp32; ids (n,) int32;
+// lr and eps are rounded to fp32.  Returns a cudaError_t.
+int adagrad_rows_launch(const AdagradArgs* a, void* stream) {
+  if (a->n == 0 || a->D == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  float* a = (float*)accum;
-  const float* g = (const float*)grads;
-  const int32_t* id = (const int32_t*)ids;
-  if (table_bf16)
-    return launch<__nv_bfloat16>(table, a, g, id, n, V, D, lr, eps, s);
-  return launch<float>(table, a, g, id, n, V, D, lr, eps, s);
+  const float lr = (float)a->lr, eps = (float)a->eps;
+  if (a->table_bf16)
+    return launch<__nv_bfloat16>(a->table, a->accum, a->grads, a->ids, a->n,
+                                 a->V, a->D, lr, eps, s);
+  return launch<float>(a->table, a->accum, a->grads, a->ids, a->n, a->V,
+                       a->D, lr, eps, s);
 }
 
 }  // extern "C"

@@ -26,9 +26,11 @@ from .embed_gather import embed_gather as _gather_kernel
 from .pm_forward import SortResidual
 from .pm_forward import pm_combine as _combine_kernel
 from .scatter_rows import scatter_rows as _scatter_kernel
+from .scatter_rows import segment_scatter_rows as _segment_scatter_kernel
 
 KERNELS = {"embed_gather": _gather_kernel, "pm_combine": _combine_kernel,
-           "adagrad_rows": _adagrad_kernel, "scatter_rows": _scatter_kernel}
+           "adagrad_rows": _adagrad_kernel, "scatter_rows": _scatter_kernel,
+           "segment_scatter_rows": _segment_scatter_kernel}
 
 
 def embed_gather(table, ids, *, use_kernel: bool = True):
@@ -74,6 +76,17 @@ def scatter_rows(base, ids, rows, *, use_kernel: bool = True):
     return _scatter_kernel(base, ids, rows)
 
 
+def segment_scatter_rows(base, residual: SortResidual, grads, *,
+                         use_kernel: bool = True):
+    """The lookup backward's gradient write in one step: ``base[id] =``
+    the sum of the token gradients of each run of equal sorted ids (the
+    forward's `SortResidual`), in place; ids outside ``[0, R)`` are
+    skipped."""
+    if not use_kernel:
+        return ref.segment_scatter_rows_ref(base, residual, grads)
+    return _segment_scatter_kernel(base, residual, grads)
+
+
 def sorted_slots(ids, n_slots: int,
                  residual: Optional[SortResidual] = None) -> SortResidual:
     """Shared id-compaction residual: stable sort, flag first-of-group,
@@ -96,19 +109,12 @@ def segment_rows(ids, grads, n_slots: int, pad_id: int = 0,
     """Aggregate duplicate row ids: returns (slot ids (n_slots,) int32,
     summed grads (n_slots, D) fp32).  Unused slots get id ``pad_id`` with
     an all-zero gradient; a sentinel ``pad_id`` (the vocab size) lets the
-    scatter and the row update skip them.  Sums are taken in fp32 with
-    `index_add_` (on a card its atomics add a slot's rows in no fixed
-    order).  ``residual``: a precomputed `SortResidual` for these ids (the
-    managed step's single sort) — aggregation then runs sort-free."""
+    scatter and the row update skip them.  Sums are taken in fp32
+    (`ref.segment_sum`).  ``residual``: a precomputed `SortResidual` for
+    these ids (the managed step's single sort) — aggregation then runs
+    sort-free."""
     order, s_ids, slot = sorted_slots(ids, n_slots, residual)
-    s_g = grads.index_select(0, order.long()).float()
-    out_g = torch.zeros((n_slots, grads.shape[1]), dtype=torch.float32,
-                        device=grads.device)
-    out_g.index_add_(0, slot.long(), s_g)
-    out_ids = torch.full((n_slots,), pad_id, dtype=torch.int32,
-                         device=ids.device)
-    out_ids[slot.long()] = s_ids
-    return out_ids, out_g
+    return ref.segment_sum(order, s_ids, slot, grads, n_slots, pad_id)
 
 
 def unique_rows(ids, n_slots: int, pad_id: int = 0,

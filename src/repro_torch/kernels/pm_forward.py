@@ -25,9 +25,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import build
-from .embed_gather import check_rows, index_operand
+from .launch import as_int32, launcher, reject
 from .ref import pm_combine_ref
+
+_launch = launcher("pm_combine_launch",
+                   "hit cslot bslot cache buf out T row_bytes")
 
 
 class ProbeCompact(NamedTuple):
@@ -240,27 +242,34 @@ def pm_combine(hit: torch.Tensor, cache_slot: torch.Tensor,
     the kernel (and raises if the build or the launch fails).  The slots
     come from the host probe: ``cache_slot`` in ``[0, C)`` on hits and
     ``buf_slot`` in ``[0, M]`` on misses."""
-    if cache_rows.device.type == "cpu":
+    if cache_rows.is_cpu:
         return pm_combine_ref(hit, cache_slot, buf_slot, cache_rows,
                               buf_rows)
-    dev = cache_rows.device
-    check_rows("pm_combine", dev, cache_rows, buf_rows)
-    hit, cache_slot, buf_slot = (index_operand("pm_combine", dev, x)
-                                 for x in (hit, cache_slot, buf_slot))
-    T, D = hit.shape[0], cache_rows.shape[1]
+    dev = cache_rows.get_device()
+    T = hit.shape[0]
+    if not (hit.get_device() == cache_slot.get_device()
+            == buf_slot.get_device() == buf_rows.get_device() == dev
+            and hit.ndim == cache_slot.ndim == buf_slot.ndim == 1
+            and cache_rows.ndim == buf_rows.ndim == 2
+            and cache_rows.is_contiguous() and buf_rows.is_contiguous()
+            and cache_rows.dtype == buf_rows.dtype
+            and cache_rows.shape[1] == buf_rows.shape[1]
+            and cache_rows.itemsize in (2, 4)):
+        reject("pm_combine", cache_rows.device, (cache_rows, buf_rows),
+               (hit, cache_slot, buf_slot))
     if cache_slot.shape[0] != T or buf_slot.shape[0] != T:
         raise ValueError("pm_combine: hit and slot lengths differ")
-    out = torch.empty((T, D), dtype=cache_rows.dtype, device=dev)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(dev):
-        err = build.library().pm_combine_launch(
-            hit.data_ptr(), cache_slot.data_ptr(), buf_slot.data_ptr(),
-            cache_rows.data_ptr(), buf_rows.data_ptr(), out.data_ptr(), T,
-            D * cache_rows.element_size(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "pm_combine")
-    pm_combine.launches += 1
+    hit, cache_slot, buf_slot = (as_int32(hit), as_int32(cache_slot),
+                                 as_int32(buf_slot))
+    D = cache_rows.shape[1]
+    out = torch.empty((T, D), dtype=cache_rows.dtype,
+                      device=cache_rows.device)
+    if T and D:
+        _launch(dev, hit.data_ptr(), cache_slot.data_ptr(),
+                buf_slot.data_ptr(), cache_rows.data_ptr(),
+                buf_rows.data_ptr(), out.data_ptr(), T,
+                D * cache_rows.itemsize)
+        pm_combine.launches += 1
     return out
 
 

@@ -60,3 +60,30 @@ def scatter_rows_ref(base, ids, rows):
     ids = ids.long()
     valid = (ids >= 0) & (ids < base.shape[0])
     return base.index_put_((ids[valid],), rows[valid].to(base.dtype))
+
+
+def segment_sum(order, sorted_ids, slot, grads, n_slots: int, pad_id: int):
+    """Duplicate rows pre-summed from a sort (order, sorted_ids, slot):
+    returns (slot ids (n_slots,) int32, sums (n_slots, D) fp32).  Unused
+    slots get id ``pad_id`` and a zero row.  `index_add_` adds a slot's
+    rows in index order on the CPU, which is sorted order; on a card its
+    atomics add them in no fixed order."""
+    s_g = grads.index_select(0, order.long()).float()
+    out_g = torch.zeros((n_slots, grads.shape[1]), dtype=torch.float32,
+                        device=grads.device)
+    out_g.index_add_(0, slot.long(), s_g)
+    out_ids = torch.full((n_slots,), pad_id, dtype=torch.int32,
+                         device=sorted_ids.device)
+    out_ids[slot.long()] = sorted_ids.to(torch.int32)
+    return out_ids, out_g
+
+
+def segment_scatter_rows_ref(base, residual, grads):
+    """``base[id] = sum of grads[order[k]]`` over each run of equal
+    ``residual.sorted_ids``, in place: `segment_sum` with its pads at R
+    (outside ``[0, R)``, so skipped) followed by `scatter_rows_ref`.
+    Returns ``base``."""
+    order, sorted_ids, slot = residual[:3]
+    ids, sums = segment_sum(order, sorted_ids, slot, grads,
+                            order.shape[0], base.shape[0])
+    return scatter_rows_ref(base, ids, sums)

@@ -48,41 +48,45 @@ class EmulatedBackend:
         return partial
 
     def scatter_row_grads(self, tok, g, vocab_size: int, *,
-                          kernel: bool = False, segmented: bool = False):
+                          kernel: bool = False, residual=None):
         """Route all row gradients to the table: a dense scatter-add, or —
-        ``kernel`` — compact unique slots written by the `scatter_rows`
-        kernel into a zero ``(V + 1, D)`` buffer whose trash row V takes
-        the pad slots and is sliced off.  ``segmented`` marks (tok, g) as
-        already duplicate-pre-summed slots (the lookup backward feeds the
-        forward's sort residual through `ops.segment_rows`), so no index
-        work happens here."""
+        ``kernel`` — one `segment_scatter_rows` launch that sums each run
+        of duplicate token ids in sorted order and writes the sums into a
+        zero ``(V + 1, D)`` buffer, whose row V (never written) is sliced
+        off.  ``residual``: the forward's `SortResidual` of ``tok`` (the
+        lookup backward passes it, so no index work happens here); without
+        one the tokens are sorted once."""
         V = vocab_size
         base = torch.zeros((V + 1, g.shape[1]), dtype=g.dtype,
                            device=g.device)
         if not kernel:
-            # pad ids (== V, only on segmented inputs) add into the trash
-            # row, which is dropped
             return base.index_add_(0, tok.long().clamp(max=V), g)[:V]
-        if segmented:
-            slot_ids, slot_g = tok, g
-        else:
-            slot_ids, slot_g = ops.segment_rows(tok, g, n_slots=tok.shape[0],
-                                                pad_id=V)
-        return ops.scatter_rows(base, slot_ids, slot_g)[:V]
+        if residual is None:
+            residual = ops.sorted_slots(tok, tok.shape[0])
+        return ops.segment_scatter_rows(base, residual, g)[:V]
 
     def refresh_rows(self, table, cache_ids):
         """Replica sync: gather the hot rows (pad ids >= V read zeros)."""
         return ref.embed_gather_ref(table, cache_ids)
 
-    def refresh_rows_delta(self, table, cache_rows, ids, slots):
+    def refresh_rows_delta(self, table, cache_rows, ids, slots, *,
+                           kernel: bool = False):
         """Incremental replica sync, in place: re-gather only ``ids``
         (ascending, V-padded) and write them into ``cache_rows`` at
         ``slots``; pad slots (== C) are dropped.  Rows the optimizer did
         not touch since the last refresh are bitwise unchanged in the
         table, so skipping them is exact — the loop takes this path only
         when that holds (sparse AdaGrad, untied embeddings).  The training
-        loop hands the index tensors over on the host, so dropping the
-        pads costs no device sync.  Returns ``cache_rows``."""
+        loop hands the index tensors over on the host.  ``kernel``: the
+        `embed_gather` kernel reads the rows (pads read nothing) and the
+        `scatter_rows` kernel writes them (pad slots are outside ``[0,
+        C)`` and write nothing); otherwise the pads are dropped on the
+        host, so neither costs a device sync.  Returns ``cache_rows``."""
+        if kernel:
+            ids = ids.to(table.device, non_blocking=True)
+            slots = slots.to(cache_rows.device, non_blocking=True)
+            rows = ops.embed_gather(table, ids)
+            return ops.scatter_rows(cache_rows, slots, rows)
         keep = slots < cache_rows.shape[0]
         ids = ids[keep].to(table.device, non_blocking=True)
         slots = slots[keep].to(cache_rows.device, non_blocking=True)

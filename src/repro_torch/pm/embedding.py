@@ -11,11 +11,11 @@ replicate; lookups take two paths:
 
 Training (`pm_lookup`, a `torch.autograd.Function`) probes on the device
 from the step's one sort (`pm_forward.step_residual`); the forward saves
-the sort residual, and the backward pre-sums duplicate token gradients
-with it and writes them into the table gradient (``kernel=True``: the
-`scatter_rows` kernel) without sorting again.  Gradients never flow into
-the replica cache; it is re-gathered from the table once per refresh
-round (`make_state` / `refresh_cache`).
+the sort residual, and the backward sums duplicate token gradients along
+it and writes them into the table gradient (``kernel=True``: one
+`segment_scatter_rows` launch) without sorting again.  Gradients never
+flow into the replica cache; it is re-gathered from the table once per
+refresh round (`make_state` / `refresh_cache`).
 
 The serving runtime runs the whole index stage on the host at admission
 (`probe_host` / `CacheProbeView`), so the device does pure data movement
@@ -126,21 +126,15 @@ class _PMLookup(torch.autograd.Function):
         tokens, order, sorted_ids, slot = ctx.saved_tensors
         V = ctx.vocab
         T = tokens.numel()
-        tok = tokens.reshape(T).to(torch.int32)
+        tok = tokens.reshape(T)
         gt = g.reshape(T, g.shape[-1])
-        # ALL row gradients go to the table; the kernel path pre-sums
-        # duplicates into compact slots with the forward's sort residual
-        # (no second sort) and scatters them with the `scatter_rows` kernel
-        be = resolve(ctx.backend)
-        if ctx.kernel:
-            srt = SortResidual(order, sorted_ids, slot)
-            seg_ids, seg_g = ops.segment_rows(tok, gt, n_slots=T, pad_id=V,
-                                              residual=srt)
-            grad_table = be.scatter_row_grads(seg_ids, seg_g.to(gt.dtype),
-                                              V, kernel=True,
-                                              segmented=True)
-        else:
-            grad_table = be.scatter_row_grads(tok, gt, V, kernel=False)
+        # ALL row gradients go to the table; the kernel path sums the
+        # duplicate token gradients along the forward's sort residual (no
+        # second sort) and writes the sums in one `segment_scatter_rows`
+        # launch
+        grad_table = resolve(ctx.backend).scatter_row_grads(
+            tok, gt, V, kernel=ctx.kernel,
+            residual=SortResidual(order, sorted_ids, slot))
         return (grad_table,) + (None,) * 9
 
 
@@ -156,7 +150,7 @@ def pm_lookup(table, cache_ids, cache_rows, tokens, miss_capacity: int,
     intent; overflow misses are still served right, by a dense gather
     (see `_lookup_impl`; ``n_miss`` is the host's unique-miss count).
     ``kernel=True`` runs the row data path through the hand-written
-    kernels (`embed_gather` + `pm_combine` forward, `scatter_rows`
+    kernels (`embed_gather` + `pm_combine` forward, `segment_scatter_rows`
     backward).  ``residual``: the step's precomputed `step_residual` for
     these (cache_ids, tokens); left None, the lookup derives it (still one
     sort: the backward reuses the forward's).  Returns (B, S, D) rows."""

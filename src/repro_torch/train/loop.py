@@ -358,7 +358,7 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
                         cache_rows = resolve(backend).refresh_rows_delta(
                             model.embed.detach(), cache_rows,
                             torch.from_numpy(ids_p),
-                            torch.from_numpy(slots_p))
+                            torch.from_numpy(slots_p), kernel=lc.kernel)
                     bus.inc("train.delta_refreshes")
                 else:
                     with tr.span("train.refresh", a=step):

@@ -17,13 +17,16 @@ from repro_torch.ckpt import checkpoint
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.adagrad_rows import adagrad_row_update
-from repro_torch.kernels.embed_gather import embed_gather
+from repro_torch.kernels.embed_gather import embed_gather, embed_gather_path
 from repro_torch.kernels.pm_forward import pm_combine
 from repro_torch.kernels.ref import (adagrad_row_update_ref,
                                      embed_gather_ref, pm_combine_ref,
-                                     scatter_rows_ref)
-from repro_torch.kernels.scatter_rows import scatter_rows
+                                     scatter_rows_ref,
+                                     segment_scatter_rows_ref)
+from repro_torch.kernels.scatter_rows import (scatter_rows,
+                                              segment_scatter_rows)
 from repro_torch.models.model import init_model
+from repro_torch.pm.embedding import make_state, pm_lookup
 from repro_torch.train.loop import LoopConfig, checkpoint_tree, train_loop
 from repro_torch.train.steps import make_opt_init
 from repro_torch.serve import (DriftingZipfStream, ReplayStream, ServeConfig,
@@ -71,7 +74,8 @@ def test_kernels_match_plain(dev, D, dtype):
     want = pm_combine_ref(hit, cslot, bslot, cache, buf)
     assert torch.equal(raw(got), raw(want))
     assert ops.launch_counts() == {"embed_gather": 1, "pm_combine": 1,
-                                   "adagrad_rows": 0, "scatter_rows": 0}
+                                   "adagrad_rows": 0, "scatter_rows": 0,
+                                   "segment_scatter_rows": 0}
 
 
 @pytest.mark.parametrize("D", [1, 3, 8, 576, 6144])
@@ -110,7 +114,8 @@ def test_training_kernels_match_plain(dev, D, dtype):
     assert torch.equal(raw(got), raw(scatter_rows_ref(base.clone(), ids,
                                                       rows)))
     assert ops.launch_counts() == {"embed_gather": 0, "pm_combine": 0,
-                                   "adagrad_rows": 1, "scatter_rows": 1}
+                                   "adagrad_rows": 1, "scatter_rows": 1,
+                                   "segment_scatter_rows": 0}
 
 
 @pytest.mark.parametrize("arch", ["nemotron-4-15b", "smollm-135m"])
@@ -139,9 +144,194 @@ def test_train_loop_on_the_card_equals_the_cpu(dev, arch, tmp_path):
     assert got.overflows == want.overflows == 0
     assert counts["embed_gather"] >= 24 and counts["pm_combine"] >= 24
     if cfg.tie_embeddings:       # dense arm: the lookup's backward scatter
-        assert counts["scatter_rows"] >= 24 and counts["adagrad_rows"] == 0
+        assert counts["segment_scatter_rows"] >= 24
+        assert counts["adagrad_rows"] == 0
     else:                        # fused arm: the sparse row update
-        assert counts["adagrad_rows"] >= 24 and counts["scatter_rows"] == 0
+        assert counts["adagrad_rows"] >= 24
+        assert counts["segment_scatter_rows"] == 0
+
+
+def unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` whose first element is one element past a 16-byte
+    boundary (rows keep their width)."""
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("D", [1, 3, 8, 576, 6144])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embed_gather_tma_and_word_paths(dev, D, dtype):
+    """Both paths of the gather bit for bit against the plain version: the
+    TMA path wherever the row is a multiple of 16 bytes and the table
+    aligned, the word path for odd widths and unaligned views, and each
+    path held to on aligned rows; ids outside [0, V), n = 0, and n that is
+    no multiple of the ring (6 stages) or of a block's rows."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(300 + D)
+    V = 1000
+    table = torch.randn((V, D), generator=g, device=dev).to(dtype)
+    row_bytes = D * table.element_size()
+    for src in (table, unaligned(table)):
+        aligned = src.data_ptr() % 16 == 0 and row_bytes % 16 == 0
+        for path in ("auto", "word") + (("tma",) if aligned else ()):
+            for n in (0, 1, 5, 37, 1001):
+                ids = torch.randint(-2, V + 3, (n,), generator=g,
+                                    device=dev, dtype=torch.int32)
+                if n >= 5:
+                    ids[:5] = torch.tensor([0, V - 1, V, -1, V + 7])
+                ops.reset_launch_counts()
+                got = embed_gather(src, ids, path=path)
+                torch.cuda.synchronize()
+                assert got.shape == (n, D) and got.dtype == dtype
+                assert torch.equal(raw(got), raw(embed_gather_ref(src, ids)))
+                assert ops.launch_counts()["embed_gather"] == (1 if n else 0)
+                if path == "auto":
+                    want_path = "tma" if aligned else "word"
+                    assert embed_gather_path(src, got) == want_path
+
+
+def test_embed_gather_chooses_by_size(dev):
+    """Aligned rows take the TMA path up to 32 MiB written and the word
+    path above it; holding unaligned rows to the TMA path raises."""
+    table = torch.randn((512, 6144), device=dev)      # rows of 24 KiB
+    for n, want in ((1365, "tma"), (1366, "word"), (4096, "word")):
+        ids = torch.randint(0, 513, (n,), device=dev)
+        got = embed_gather(table, ids)
+        assert embed_gather_path(table, got) == want
+        assert torch.equal(raw(got), raw(embed_gather_ref(table, ids)))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        embed_gather(unaligned(table[:8]), ids[:4], path="tma")
+    torch.cuda.synchronize()
+
+
+def zipf_tokens(seed: int, T: int, V: int) -> torch.Tensor:
+    """Loader-like token ids: Zipf duplicates, with rows 0 and V - 1."""
+    rng = np.random.default_rng(seed)
+    tok = (rng.zipf(1.2, size=T) - 1) % V
+    tok[:3] = [0, V - 1, 0]
+    return torch.from_numpy(tok.astype(np.int32))
+
+
+def reorder_tolerance(base, residual, grads):
+    """Per element, the forward-error bound of an fp32 sum of a run taken
+    in another order: 2 * (T - 1) * 2^-24 * sum |g| (T bounds any run's
+    length), plus one rounding to bf16 where base is bf16."""
+    T = grads.shape[0]
+    mag = segment_scatter_rows_ref(torch.zeros_like(base, dtype=torch.float32),
+                                   residual, grads.abs())
+    tol = 2.0 * max(T - 1, 1) * 2.0 ** -24 * mag
+    if base.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * mag
+    return tol
+
+
+@pytest.mark.parametrize("D", [1, 3, 8, 576, 6144])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("one_run", [False, True])
+def test_segment_scatter_rows_matches_plain(dev, D, dtype, one_run):
+    """The segmented scatter equals its plain version run on CPU copies
+    bit for bit (both add each run in sorted order); against the plain
+    version on the card, whose `index_add_` adds with atomics, it is
+    within the bound of a reordered fp32 sum.  Row V (the trash row) and
+    every row no token names stay zero."""
+    V, T = 3000, 512
+    tok = zipf_tokens(D, T, V).to(dev)
+    if one_run:
+        tok[:] = 17
+    res = ops.sorted_slots(tok, T)
+    g = torch.Generator(device=dev)
+    g.manual_seed(400 + D)
+    grads = torch.randn((T, D), generator=g, device=dev).to(dtype)
+    base = torch.zeros((V + 1, D), dtype=dtype, device=dev)
+    ops.reset_launch_counts()
+    got = segment_scatter_rows(base.clone(), res, grads)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["segment_scatter_rows"] == 1
+    cpu = type(res)(*(x.cpu() for x in res))
+    want = segment_scatter_rows_ref(base.cpu(), cpu, grads.cpu())
+    assert torch.equal(raw(got.cpu()), raw(want))
+    card = segment_scatter_rows_ref(base.clone(), res, grads)
+    tol = reorder_tolerance(base, res, grads.float())
+    assert bool(((got.float() - card.float()).abs() <= tol).all())
+    named = torch.zeros(V + 1, dtype=torch.bool, device=dev)
+    named[tok.long()] = True
+    assert torch.count_nonzero(got[~named]) == 0
+
+
+def test_segment_scatter_rows_mixed_types_and_unaligned(dev):
+    """fp32 gradients into a bf16 base and bf16 into fp32, and gradients
+    from an unaligned view (the element path): bit for bit against the
+    plain version on CPU copies."""
+    V, T, D = 500, 256, 24
+    tok = zipf_tokens(7, T, V).to(dev)
+    res = ops.sorted_slots(tok, T)
+    cpu = type(res)(*(x.cpu() for x in res))
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    grads = torch.randn((T, D), generator=g, device=dev)
+    for b_dtype, g_src in ((torch.bfloat16, grads),
+                           (torch.float32, grads.to(torch.bfloat16)),
+                           (torch.float32, unaligned(grads))):
+        base = torch.zeros((V + 1, D), dtype=b_dtype, device=dev)
+        got = segment_scatter_rows(base.clone(), res, g_src)
+        torch.cuda.synchronize()
+        want = segment_scatter_rows_ref(base.cpu(), cpu, g_src.cpu())
+        assert torch.equal(raw(got.cpu()), raw(want))
+
+
+def test_pm_lookup_sum_backward_takes_an_expanded_gradient(dev):
+    """``pm_lookup(...).sum().backward()`` hands the backward an expanded
+    gradient (stride 0): the segmented scatter takes it and gives the
+    CPU's table gradient bit for bit."""
+    V, D = 300, 24
+    tok = zipf_tokens(11, 96, V).reshape(4, 24)
+    cache = torch.full((16,), V, dtype=torch.int32)
+    cached = torch.unique(tok)[::3][:16]
+    cache[:cached.numel()] = cached
+    g = torch.Generator()
+    g.manual_seed(11)
+    table = torch.randn((V, D), generator=g)
+    grads = []
+    for d in (torch.device("cpu"), dev):
+        tab = table.to(d, copy=True).requires_grad_(True)
+        cr = make_state(tab.detach(), cache.to(d)).cache_rows
+        ops.reset_launch_counts()
+        pm_lookup(tab, cache.to(d), cr, tok.to(d), 64,
+                  kernel=True).sum().backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["segment_scatter_rows"] == 1
+        grads.append(tab.grad.cpu())
+    assert torch.equal(raw(grads[1]), raw(grads[0]))
+
+
+def test_every_wrapper_counts_its_launches(dev):
+    """One call of each wrapper on CUDA tensors adds one to its own count
+    and to no other."""
+    V, n, D = 64, 8, 16
+    table = torch.randn((V, D), device=dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    res = ops.sorted_slots(ids, n)
+    calls = {
+        "embed_gather": lambda: embed_gather(table, ids),
+        "pm_combine": lambda: pm_combine(ids, ids, ids, table, table),
+        "adagrad_rows": lambda: adagrad_row_update(
+            table.clone(), torch.ones_like(table), ids,
+            torch.ones((n, D), device=dev)),
+        "scatter_rows": lambda: scatter_rows(table.clone(), ids,
+                                             table[:n]),
+        "segment_scatter_rows": lambda: segment_scatter_rows(
+            torch.zeros_like(table), res, table[:n]),
+    }
+    for name, call in calls.items():
+        ops.reset_launch_counts()
+        call()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts[name] == 1
+        assert sum(counts.values()) == 1
 
 
 def test_unaligned_views_and_int64_ids(dev):
@@ -166,6 +356,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     rows = torch.zeros((8, 4), device=dev)
     with pytest.raises(ValueError, match="dtype or width"):
         pm_combine(ids, ids, ids, rows, torch.zeros((8, 5), device=dev))
+    res = ops.sorted_slots(ids, 4)
+    with pytest.raises(ValueError, match="width"):
+        segment_scatter_rows(rows, res, torch.zeros((4, 5), device=dev))
+    with pytest.raises(ValueError, match="lengths"):
+        segment_scatter_rows(rows, res, torch.zeros((3, 4), device=dev))
+    with pytest.raises(ValueError, match="1-D on"):
+        segment_scatter_rows(rows, type(res)(*(x.cpu() for x in res)),
+                             torch.zeros((4, 4), device=dev))
 
 
 def test_runtime_on_the_card_equals_the_cpu(dev):

@@ -133,7 +133,8 @@ def test_cpu_run_launches_no_kernels():
     ops.reset_launch_counts()
     run_pair(*CASES["depth1-shards1"])
     assert ops.launch_counts() == {"embed_gather": 0, "pm_combine": 0,
-                                   "adagrad_rows": 0, "scatter_rows": 0}
+                                   "adagrad_rows": 0, "scatter_rows": 0,
+                                   "segment_scatter_rows": 0}
 
 
 def test_default_device_is_the_card():

@@ -268,7 +268,8 @@ def test_pm_lookup_matches_jax(kernel, M):
 
 def test_launch_counts_cover_every_kernel():
     assert set(ops.launch_counts()) == {"embed_gather", "pm_combine",
-                                        "adagrad_rows", "scatter_rows"}
+                                        "adagrad_rows", "scatter_rows",
+                                        "segment_scatter_rows"}
     ops.reset_launch_counts()
     adagrad_row_update(torch.zeros(4, 2), torch.zeros(4, 2),
                        torch.tensor([1]), torch.ones(1, 2))

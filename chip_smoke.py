@@ -51,7 +51,20 @@ order it:
    run through the plain versions, whose loss trace must agree within
    rtol 1e-4 / atol 1e-5; then trains each again, untraced and under
    `torch.profiler`, to show where a step's time goes;
-6. prints the kernel table as one JSON line, the card line and, last, the
+6. starts a one-rank NCCL process group on the card and runs the
+   vocab-parallel mesh (`repro_torch.pm.collectives.MeshBackend`) at
+   world size 1: its routed gather, gradient scatter, AdaGrad update and
+   delta refresh at nemotron-4-15b's width against `EmulatedBackend(1)`
+   (both through the kernels; rows, gradients and updated tables bit for
+   bit), serves the nemotron embedding over it with the automatic knobs
+   and with the constrained run's pinned knobs (exact rows, no zero row
+   served, misses routed in the constrained run; ms per round beside the
+   emulated runtime's, in turns, and both profiled) and trains
+   nemotron-4-15b (4 layers, the fused arm) and smollm-135m (tied:
+   `vocab_parallel_ce`) over it, whose loss traces must agree with the
+   emulated kernel runs within rtol 1e-4 / atol 1e-5 with no overflow
+   step;
+7. prints the kernel table as one JSON line, the card line and, last, the
    device line.
 
 Any failure raises, so the script exits non-zero before those last lines.
@@ -70,13 +83,16 @@ times: ms per round of both serving runs and ms per smollm-135m step.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
+import itertools
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -358,7 +374,6 @@ def gather_at_sizes(table, sizes, seed: int = SEED) -> dict:
     where the tree has the option, also each path's ms, the two timed in
     turns (TMA, word, word, TMA), so "tma_ms" and "word_ms" list two turns
     each, and the path the gather takes left to choose."""
-    import itertools
     import torch
     from repro_torch.kernels.embed_gather import embed_gather
     dev = table.device
@@ -649,7 +664,11 @@ def time_training_kernels(table, n=N_ROWS, seed: int = SEED) -> dict:
     step's shapes: the AdaGrad update of n = 512 unique rows of the full
     table (in place, with an fp32 accumulator of the table's size) and
     the scatter of 512 rows into smollm-135m's (49153, 576) gradient
-    buffer.  Ids hold no pads, so the library calls take them too."""
+    buffer.  Ids hold no pads, so the library calls take them too.  The
+    update cycles through enough id sets that the table and accumulator
+    rows they touch exceed twice the L2 cache, so each call reads its
+    rows from HBM as a training step's fresh ids do (the gradient rows,
+    just written by the step, stay one set)."""
     import torch
     from repro_torch.kernels.adagrad_rows import adagrad_row_update
     from repro_torch.kernels.ref import (adagrad_row_update_ref,
@@ -659,20 +678,25 @@ def time_training_kernels(table, n=N_ROWS, seed: int = SEED) -> dict:
     V, D = table.shape
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 4)
-    ids = torch.randperm(V, generator=g, device=dev)[:n].to(torch.int32)
-    idl = ids.long()
+    row_bytes = 2 * D * table.element_size()         # table + accum row
+    k = max(2, -(-2 * L2_BYTES // (n * row_bytes)))
+    sets = [torch.randperm(V, generator=g, device=dev)[:n].to(torch.int32)
+            for _ in range(k)]
+    cyc = itertools.cycle([(i, i.long()) for i in sets])
     grads = torch.randn((n, D), generator=g, device=dev)
     accum = torch.rand((V, D), generator=g, device=dev)
     lr, eps = 0.01, 1e-8
 
     def library_adagrad():
+        _, idl = next(cyc)
         a = accum.index_select(0, idl) + grads * grads
         p = table.index_select(0, idl) - lr * grads / (torch.sqrt(a) + eps)
         accum.index_copy_(0, idl, a)
         table.index_copy_(0, idl, p)
 
     def adagrad():
-        return adagrad_row_update(table, accum, ids, grads, lr=lr, eps=eps)
+        return adagrad_row_update(table, accum, next(cyc)[0], grads, lr=lr,
+                                  eps=eps)
 
     Vs, Ds = SMOLLM
     s_ids = torch.randperm(Vs, generator=g, device=dev)[:n].to(torch.int32)
@@ -691,9 +715,10 @@ def time_training_kernels(table, n=N_ROWS, seed: int = SEED) -> dict:
             "shape": f"table ({V}, {D}) {table.dtype}, accum fp32, n={n}",
             "ms": median_ms(adagrad),
             "plain_ms": median_ms(lambda: adagrad_row_update_ref(
-                table, accum, ids, grads, lr=lr, eps=eps)),
+                table, accum, next(cyc)[0], grads, lr=lr, eps=eps)),
             "library_ms": median_ms(library_adagrad),
             "bound_ms": (5 * n * D * 4 + 4 * n) / HBM_BYTES_PER_S * 1e3,
+            "id_sets": k,
             "host_us": host_us(adagrad),
             "library_host_us": host_us(library_adagrad),
         },
@@ -863,11 +888,12 @@ def train_config(arch: str):
     return cfg
 
 
-def loop_config(arch: str, kernel: bool, steps: int = TRAIN_STEPS):
+def loop_config(arch: str, kernel: bool, steps: int = TRAIN_STEPS,
+                collective: str = "emulated"):
     from repro_torch.train.loop import LoopConfig
     return LoopConfig(steps=steps, batch=TRAIN_B, seq=TRAIN_S,
                       lr=TRAIN_LR[arch], kernel=kernel, log_every=0,
-                      seed=SEED, **TRAIN_KNOBS)
+                      seed=SEED, collective=collective, **TRAIN_KNOBS)
 
 
 def free_card() -> None:
@@ -876,14 +902,18 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def train(arch: str, kernel: bool) -> dict:
+def train(arch: str, kernel: bool, collective: str = "emulated") -> dict:
     """One training run (seeded random init on the card); checks finite
     losses and no overflow, and with ``kernel`` which kernels ran: the
     fused arm (untied) updates rows with `adagrad_rows`, its delta
     refresh writes the cache with `scatter_rows`, and it never runs the
     lookup's backward; the tied arm writes the lookup's gradient with
     `segment_scatter_rows` and runs neither the row update nor the delta
-    refresh; both gather and combine through the forward kernels."""
+    refresh; both gather and combine through the forward kernels.  On the
+    mesh (``collective="mesh"``, in a started process group) the routing
+    packs and writes rows with `scatter_rows` on both arms.  Also returns
+    the steady step time (host clock between the first and the last loss
+    read)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.train.loop import train_loop
@@ -892,8 +922,10 @@ def train(arch: str, kernel: bool) -> dict:
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
+    bus = loss_clock()
     t0 = time.perf_counter()
-    res = train_loop(cfg, loop_config(arch, kernel))
+    res = train_loop(cfg, loop_config(arch, kernel, collective=collective),
+                     telemetry=bus)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -902,7 +934,10 @@ def train(arch: str, kernel: bool) -> dict:
     if res.overflows != 0:
         raise AssertionError(f"{arch}: {res.overflows} overflow steps")
     if kernel:
-        if cfg.tie_embeddings:
+        if cfg.tie_embeddings and collective == "mesh":
+            want = ("segment_scatter_rows", "scatter_rows")
+            never = ("adagrad_rows",)
+        elif cfg.tie_embeddings:
             want = ("segment_scatter_rows",)
             never = ("adagrad_rows", "scatter_rows")
         else:
@@ -918,10 +953,11 @@ def train(arch: str, kernel: bool) -> dict:
         raise AssertionError(f"{arch}: plain run launched {launches}")
     return {"arch": arch, "n_layers": cfg.n_layers,
             "tied": cfg.tie_embeddings, "kernel": kernel,
+            "collective": collective,
             "steps": len(res.losses), "losses": res.losses,
             "plans": res.plans, "refreshes": res.refreshes,
             "overflows": res.overflows, "recompiles": res.recompiles,
-            "launches": launches, "wall_s": wall,
+            "launches": launches, "wall_s": wall, "step_ms": step_ms(bus),
             "peak_alloc_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
@@ -1012,6 +1048,172 @@ def train_profile(arch: str, steps: int = PROFILE_STEPS) -> dict:
                                          key=lambda kv: -kv[1])[:8]),
             "host_span_ms": host_ms,
             "peak_alloc_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+@contextlib.contextmanager
+def nccl_group(dev):
+    """A one-rank NCCL process group on ``dev`` (NCCL takes one card per
+    rank, and the smoke has one card); yields its mesh backend.  A failed
+    NCCL start raises."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_group
+    from repro_torch.pm.collectives import make_backend
+    with tempfile.TemporaryDirectory() as tmp:
+        init_group(0, 1, str(Path(tmp) / "init"), device=dev)
+        try:
+            yield make_backend("mesh", 1)
+        finally:
+            dist.destroy_process_group()
+
+
+def nemotron_tokens(dev, seed: int = SEED):
+    """One training batch of nemotron-4-15b's loader corpus (8 x 64
+    tokens, Zipf over 256000 ids), flattened to (512,) int32."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticCorpus
+    tok = SyntheticCorpus(VOCAB, seed=seed).tokens((TRAIN_B, TRAIN_S))
+    return torch.from_numpy(tok.reshape(-1).astype(np.int32)).to(dev)
+
+
+def check_mesh_backend(be, table, seed: int = SEED) -> dict:
+    """The mesh backend's routed methods against `EmulatedBackend(1)`,
+    both through the kernels, on the full nemotron-4-15b table (256000 x
+    6144 fp32): the routed gather of a 1024-slot miss buffer (1000
+    ascending unique ids, pads zero), the table gradient of one loader
+    batch (512 tokens; both sum each run of equal ids in sorted order, so
+    the bits must agree), the AdaGrad update of its unique rows (table
+    and accumulator, in place, bitwise) and the delta refresh of 200
+    rows of a 1024-row cache.  Returns the largest differences (0.0) and
+    the launches the mesh calls made."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.pm.collectives import EmulatedBackend, route_block
+    dev = table.device
+    V, D = table.shape
+    emu = EmulatedBackend(1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 7)
+    err = {}
+    launches = dict.fromkeys(ops.KERNELS, 0)
+
+    def mesh(fn, *a, **k):
+        before = ops.launch_counts()
+        out = fn(*a, **k)
+        for name, c in ops.launch_counts().items():
+            launches[name] += c - before[name]
+        return out
+
+    def same(name, got, want):
+        torch.cuda.synchronize(dev)
+        if not torch.equal(bits(got), bits(want)):
+            raise AssertionError(f"mesh {name} != emulated")
+        err[name] = max_abs_err(got, want)
+
+    M, nv = 1024, 1000
+    ids = torch.sort(torch.randperm(V, generator=g, device=dev)[:M])[0]
+    ids = ids.to(torch.int32)
+    cap = route_block(ids[:nv].cpu().numpy(), V, be.n_shards, M)
+    got = mesh(be.gather_rows_routed, table, ids, nv, cap, kernel=True)
+    want = emu.gather_rows(table, ids, kernel=True)
+    want[nv:] = 0
+    same("gather_rows_routed", got, want)
+    tok = nemotron_tokens(dev, seed)
+    T = tok.shape[0]
+    grads = torch.randn((T, D), generator=g, device=dev)
+    res = ops.sorted_slots(tok, T)
+    got = mesh(be.scatter_row_grads, tok, grads, V, kernel=True,
+               residual=res)
+    want = emu.scatter_row_grads(tok, grads, V, kernel=True, residual=res)
+    same("scatter_row_grads", got, want)
+    del got, want
+    free_card()
+    seg_ids, seg_g = ops.segment_rows(tok, grads, n_slots=T, pad_id=V,
+                                      residual=res)
+    accum = torch.rand((V, D), generator=g, device=dev)
+    t_m, a_m = table.clone(), accum.clone()
+    mesh(be.update_rows, t_m, a_m, seg_ids, seg_g, lr=0.01, kernel=True)
+    t_e = table.clone()
+    emu.update_rows(t_e, accum, seg_ids, seg_g, lr=0.01, kernel=True)
+    same("update_rows (table)", t_m, t_e)
+    same("update_rows (accum)", a_m, accum)
+    del a_m, accum
+    free_card()
+    C, n, k = 1024, 256, 200
+    cache = torch.sort(torch.randperm(V, generator=g, device=dev)[:C])[0]
+    cache = cache.to(torch.int32)
+    pick = torch.sort(torch.randperm(C, generator=g, device=dev)[:k])[0]
+    ids_h = torch.full((n,), V, dtype=torch.int32)
+    ids_h[:k] = cache[pick].cpu()
+    slots_h = torch.full((n,), C, dtype=torch.int32)
+    slots_h[:k] = pick.cpu().to(torch.int32)
+    stale = emu.refresh_rows(table, cache)
+    got = mesh(be.refresh_rows_delta, t_m, stale.clone(), ids_h, slots_h,
+               kernel=True)
+    want = emu.refresh_rows_delta(t_e, stale.clone(), ids_h, slots_h,
+                                  kernel=True)
+    same("refresh_rows_delta", got, want)
+    del t_m, t_e, got, want
+    free_card()
+    return {"max_abs_err": err, "launches": launches,
+            "shapes": f"table ({V}, {D}) fp32; gather M={M} (n_valid "
+                      f"{nv}); grads and update T={T}; delta {k} of {C}"}
+
+
+MESH_SERVE = dict(n_shards=1, collective="mesh", model_shards=1)
+
+
+@contextlib.contextmanager
+def miss_routes():
+    """Counts the serving lookups that moved misses through the mesh's
+    routed gather (a block from the host) and through its replicated
+    gather (wrapping `pm.embedding.combine_miss_buffer`)."""
+    from repro_torch.pm import embedding
+    combine = embedding.combine_miss_buffer
+    counts = {"routed": 0, "replicated": 0}
+
+    def counting(*a, n_miss=None, route_cap=0, **k):
+        if n_miss:
+            counts["routed" if route_cap > 0 else "replicated"] += 1
+        return combine(*a, n_miss=n_miss, route_cap=route_cap, **k)
+
+    embedding.combine_miss_buffer = counting
+    try:
+        yield counts
+    finally:
+        embedding.combine_miss_buffer = combine
+
+
+def serve_mesh(table) -> tuple:
+    """The serving runtime over the one-rank mesh, checked as `serve`
+    checks (every served row bitwise ``table[keys]``, no zero row
+    served), with the automatic knobs and with the constrained run's
+    pinned knobs (a 512-row cache, depth 2: about a third of the tokens
+    miss and take the routed gather, which the run must show); then ms
+    per round of fresh untraced runs in turns, emulated (one shard),
+    mesh, mesh, emulated, on both knob sets (the automatic knobs'
+    wall-clock hill-climb may take the two runtimes down different knob
+    paths); then profiles both on the pinned knobs (`profile`)."""
+    runs = []
+    for pinned in ({}, {"cache_capacity": 512, "pipeline_depth": 2}):
+        with miss_routes() as routes:
+            runs.append(dict(serve(table, **MESH_SERVE, **pinned),
+                             miss_routes=routes))
+    if runs[1]["miss_routes"]["routed"] <= 0:
+        raise AssertionError("the constrained mesh run routed no miss")
+    ms = {}
+    for label, pinned in (("auto", {}),
+                          ("constrained", {"cache_capacity": 512,
+                                           "pipeline_depth": 2})):
+        for name in ("emulated", "mesh", "mesh", "emulated"):
+            knobs = MESH_SERVE if name == "mesh" else dict(n_shards=1)
+            _, wall = serve_untraced(table, ROUNDS, **knobs, **pinned)
+            ms.setdefault(f"{label} {name}", []).append(
+                wall * 1e3 / ROUNDS)
+    pinned = {"cache_capacity": 512, "pipeline_depth": 2}
+    profiles = {name: profile(table, **knobs, **pinned)
+                for name, knobs in (("emulated", dict(n_shards=1)),
+                                    ("mesh", MESH_SERVE))}
+    return runs, ms, profiles
 
 
 SOURCE = {"embed_gather": "src/repro_torch/kernels/csrc/row_kernels.cu",
@@ -1116,13 +1318,13 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
-    print(f"[1/6] device: {card} ({torch.cuda.get_device_name(0)}, "
+    print(f"[1/7] device: {card} ({torch.cuda.get_device_name(0)}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
     t0 = time.perf_counter()
     lib = build.build()
     build.library()
-    print(f"[2/6] built {lib.relative_to(Path(__file__).resolve().parent)} "
+    print(f"[2/7] built {lib.relative_to(Path(__file__).resolve().parent)} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     table = make_table(dev)
@@ -1130,29 +1332,29 @@ def main() -> int:
     err.update(check_training_kernels(table))
     seg = check_segment_scatter(dev)
     err["segment_scatter_rows"] = seg["max_abs_err"]
-    print("[3/6] embed_gather paths " + json.dumps(paths), flush=True)
-    print("[3/6] segment_scatter_rows " + json.dumps(seg), flush=True)
+    print("[3/7] embed_gather paths " + json.dumps(paths), flush=True)
+    print("[3/7] segment_scatter_rows " + json.dumps(seg), flush=True)
     times = time_kernels(table)
     times.update(time_training_kernels(table))
     times["segment_scatter_rows"] = time_segment_scatter(dev)
-    print("[3/6] kernels == plain versions, bitwise: "
+    print("[3/7] kernels == plain versions, bitwise: "
           + json.dumps({k: {"max_abs_err": err[k], **times[k]}
                         for k in err}), flush=True)
 
     runs = [serve(table),
             serve(table, cache_capacity=512, pipeline_depth=2)]
     for r in runs:
-        print("[4/6] serve " + json.dumps(r), flush=True)
+        print("[4/7] serve " + json.dumps(r), flush=True)
     sizes = sorted(set(serve_sizes(runs)) | {N_IDS})
-    print("[4/6] embed_gather at the serving runs' sizes and n=4096, both "
+    print("[4/7] embed_gather at the serving runs' sizes and n=4096, both "
           "paths " + json.dumps(gather_at_sizes(table, sizes)), flush=True)
     for knobs in ({}, {"cache_capacity": 512, "pipeline_depth": 2}):
-        print("[4/6] profile " + json.dumps(profile(table, **knobs)),
+        print("[4/7] profile " + json.dumps(profile(table, **knobs)),
               flush=True)
     del table
     free_card()
 
-    print("[5/6] lookup backward launches " + json.dumps(
+    print("[5/7] lookup backward launches " + json.dumps(
         backward_launches(dev)), flush=True)
     trains = []
     for arch in ("nemotron-4-15b", "smollm-135m"):
@@ -1163,17 +1365,56 @@ def main() -> int:
         diff = float(np.max(np.abs(np.subtract(ker["losses"],
                                                plain["losses"]))))
         for r in (ker, plain):
-            print("[5/6] train " + json.dumps(r), flush=True)
-        print(f"[5/6] {arch}: kernel vs plain loss trace, max abs diff "
+            print("[5/7] train " + json.dumps(r), flush=True)
+        print(f"[5/7] {arch}: kernel vs plain loss trace, max abs diff "
               f"{diff!r} (rtol {TRACE_RTOL}, atol {TRACE_ATOL})", flush=True)
         trains.append(ker)
     for arch in ("nemotron-4-15b", "smollm-135m"):
-        print("[5/6] train profile " + json.dumps(train_profile(arch)),
+        print("[5/7] train profile " + json.dumps(train_profile(arch)),
               flush=True)
+
+    import torch.distributed as dist
+    with nccl_group(dev) as be:
+        print(f"[6/7] process group: backend {dist.get_backend()}, world "
+              f"size {dist.get_world_size()}, {type(be).__name__} of "
+              f"{be.n_shards} shard on {be.device} ({card})", flush=True)
+        table = make_table(dev)
+        mesh_err = check_mesh_backend(be, table)
+        print("[6/7] mesh backend == emulated backend, bitwise: "
+              + json.dumps(dict(mesh_err, card=card)), flush=True)
+        serve_runs, serve_ms, serve_prof = serve_mesh(table)
+        for r in serve_runs:
+            print("[6/7] mesh serve " + json.dumps(dict(r, card=card)),
+                  flush=True)
+        print("[6/7] mesh serve ms per round in turns (emulated, mesh, mesh,"
+              " emulated; 32 rounds, one shard) "
+              + json.dumps(dict(serve_ms, card=card)), flush=True)
+        for name, prof in serve_prof.items():
+            print(f"[6/7] profile, {name}, one shard " + json.dumps(
+                dict(prof, card=card)), flush=True)
+        del table
+        free_card()
+        mesh_runs = list(serve_runs)
+        for emu in trains:
+            r = train(emu["arch"], True, collective="mesh")
+            np.testing.assert_allclose(
+                r["losses"], emu["losses"], rtol=TRACE_RTOL, atol=TRACE_ATOL,
+                err_msg=f"{r['arch']}: mesh vs emulated trace")
+            diff = float(np.max(np.abs(np.subtract(r["losses"],
+                                                   emu["losses"]))))
+            print("[6/7] mesh train " + json.dumps(dict(r, card=card)),
+                  flush=True)
+            print(f"[6/7] {r['arch']}: mesh vs emulated kernel loss trace, "
+                  f"max abs diff {diff!r} (rtol {TRACE_RTOL}, atol "
+                  f"{TRACE_ATOL}) ({card})", flush=True)
+            mesh_runs.append(r)
+    print("[6/7] mesh runs' launches " + json.dumps(
+        {name: sum(r["launches"][name] for r in mesh_runs)
+         for name in REPLACES}), flush=True)
 
     kernels = []
     for name in REPLACES:
-        launches = sum(r["launches"][name] for r in runs + trains)
+        launches = sum(r["launches"][name] for r in runs + trains + mesh_runs)
         if launches <= 0:
             raise AssertionError(f"{name} was not launched on a main path")
         t = times[name]
@@ -1184,7 +1425,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"],
             "host_us": t["host_us"], "library_host_us": t["library_host_us"]})
-    print("[6/6] done")
+    print("[7/7] done")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -117,6 +117,29 @@ def segment_rows(ids, grads, n_slots: int, pad_id: int = 0,
     return ref.segment_sum(order, s_ids, slot, grads, n_slots, pad_id)
 
 
+def owner_segments(sorted_ids, n_valid, n_owners: int, block: int):
+    """Per-owner segment boundaries of an ascending id list: the index
+    stage of the mesh's destination-compacted routing.
+
+    ``sorted_ids`` must be ascending on its first ``n_valid`` entries (an
+    int or a 0-dim tensor; the probe/compact and segment contracts: unique
+    ids claim slots in ascending-id order, so grouping by owner falls out
+    of the step's one sort); entries past ``n_valid`` may hold anything.
+    Returns ``(view, seg)``: ``view[i] = sorted_ids[i]`` for ``i <
+    n_valid`` and the out-of-vocab sentinel ``n_owners * block`` after,
+    and ``seg`` (``n_owners + 1`` int32 entries) with ``seg[k]`` the first
+    position owned by shard k — per-owner counts are ``seg[1:] -
+    seg[:-1]``.  Pure `searchsorted` over the ascending view: no sort."""
+    dev = sorted_ids.device
+    pos = torch.arange(sorted_ids.shape[0], dtype=torch.int32, device=dev)
+    view = torch.where(pos < n_valid, sorted_ids.to(torch.int32),
+                       n_owners * block).to(torch.int32)
+    bounds = torch.arange(n_owners + 1, dtype=torch.int32,
+                          device=dev) * block
+    seg = torch.searchsorted(view, bounds).to(torch.int32)
+    return view, seg
+
+
 def unique_rows(ids, n_slots: int, pad_id: int = 0,
                 residual: Optional[SortResidual] = None):
     """Unique ids compacted into ``n_slots`` slots (unused slots keep

@@ -8,19 +8,25 @@ scans over it; here each layer is its own module.  `params_from_jax` and
 package loads in the other (`ckpt/checkpoint.py`).
 
 ``forward`` returns ``(logits, aux, None)`` like the reference (``aux`` is
-the MoE load-balance loss, zero for the dense family); ``loss_fn`` is its
-mean cross-entropy.
+the MoE load-balance loss, zero for the dense family; ``skip_head=True``
+returns the final hidden state in place of the logits, for
+`losses.vocab_parallel_ce`); ``loss_fn`` is its mean cross-entropy.
+
+On the vocab-parallel mesh the model's ``embed`` is this rank's block of
+the table (the training loop places it), and a checkpoint's ``embed``
+leaves load as that block (`params_from_jax` with ``shard``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import block_rows
 from repro_torch.pm.embedding import pm_lookup
 from .layers import (_dense_init, attention_block, init_attention, init_mlp,
                      init_norm, mlp_block, norm)
@@ -79,13 +85,16 @@ class DenseLM(nn.Module):
     def forward(self, batch: Dict[str, Any], *, pm_miss_capacity: int = 0,
                 pm_strict: bool = False, pm_kernel: bool = False,
                 pm_backend=None, pm_residual=None,
-                embed_rows: Optional[torch.Tensor] = None):
-        """Returns (logits, aux_loss, None).
+                embed_rows: Optional[torch.Tensor] = None,
+                skip_head: bool = False):
+        """Returns (logits, aux_loss, None), or with ``skip_head`` (the
+        final hidden state (B, S, D), aux_loss, None).
 
         batch: ``tokens`` (B, S) int, optional ``positions`` (B, S), and
         the managed embedding's replica cache ``pm_cache_ids`` /
         ``pm_cache_rows`` (active when ``pm_miss_capacity > 0``), with the
-        host's unique-miss count ``pm_n_miss`` where the loop knows it.
+        host's unique-miss count ``pm_n_miss`` and the mesh's routed block
+        ``pm_route_cap`` where the loop knows them.
         ``pm_residual``: the step's precomputed `step_residual`.
         ``embed_rows``: already-gathered (B, S, D) token rows; skips the
         embedding lookup (the fused sparse step differentiates with
@@ -99,7 +108,7 @@ class DenseLM(nn.Module):
             h = pm_lookup(self.embed, batch["pm_cache_ids"],
                           batch["pm_cache_rows"], tokens, pm_miss_capacity,
                           pm_strict, pm_kernel, pm_backend, pm_residual,
-                          batch.get("pm_n_miss"))
+                          batch.get("pm_n_miss"), batch.get("pm_route_cap", 0))
         else:
             h = self.embed[tokens.long()]
         positions = batch.get("positions")
@@ -108,9 +117,11 @@ class DenseLM(nn.Module):
         for layer in self.layers:
             h = layer(h, cfg, positions)
         h = norm(h, self.final_norm, cfg.norm, cfg.norm_eps)
+        aux = torch.zeros((), dtype=h.dtype, device=h.device)
+        if skip_head:
+            return h, aux, None
         head = self.embed.T if cfg.tie_embeddings else self.head
-        logits = h @ head
-        return logits, torch.zeros((), dtype=h.dtype, device=h.device), None
+        return h @ head, aux, None
 
 
 def init_model(cfg: ModelConfig, gen: torch.Generator,
@@ -153,13 +164,19 @@ def params_to_jax(named: Mapping[str, Any], n_layers: int) -> Dict[str, Any]:
     return tree
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
+def params_from_jax(tree: Mapping[str, Any],
+                    shard: Optional[Tuple[int, int]] = None
+                    ) -> Dict[str, Any]:
     """The port's named parameters from the reference's parameter tree
     (leaves as numpy arrays or tensors): the stacked ``layers`` leaves are
-    split into ``layers.<i>.<rest>``.  The inverse of `params_to_jax`."""
+    split into ``layers.<i>.<rest>``.  The inverse of `params_to_jax`.
+    ``shard=(rank, n)``: the ``embed`` leaf becomes the rows rank ``rank``
+    of ``n`` owns on the vocab-parallel mesh (a view of them)."""
     out: Dict[str, Any] = {}
     for path, leaf in _leaves(tree):
-        if path[0] == "layers":
+        if path == ("embed",) and shard is not None:
+            out["embed"] = leaf[block_rows(leaf.shape[0], *shard)]
+        elif path[0] == "layers":
             rest = ".".join(path[1:])
             for i in range(leaf.shape[0]):
                 out[f"layers.{i}.{rest}"] = leaf[i]

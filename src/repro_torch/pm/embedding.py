@@ -19,9 +19,16 @@ refresh round (`make_state` / `refresh_cache`).
 
 The serving runtime runs the whole index stage on the host at admission
 (`probe_host` / `CacheProbeView`), so the device does pure data movement
-(`planned_serve_lookup`).  In both, ``kernel=True`` gathers the miss
-buffer with the `embed_gather` kernel and selects each token's row with
-the `pm_combine` kernel.
+(`planned_serve_lookup`); `serve_lookup` is the probe-on-device form.  In
+all of them, ``kernel=True`` gathers the miss buffer with the
+`embed_gather` kernel and selects each token's row with the `pm_combine`
+kernel.
+
+On the mesh backend (`pm.collectives.MeshBackend`) ``table`` is this
+rank's ``(V/n, D)`` block, the miss buffer moves through the routed
+owner-block gather, and the backward routes each summed row to its
+owner's block; the replica cache and the lookup's output are the same on
+every rank.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.pm_forward import (SortResidual, StepResidual,
-                                            host_compact, step_residual)
+                                            host_compact, probe_and_compact,
+                                            step_residual)
 from repro_torch.pm.collectives import resolve
 
 
@@ -46,11 +54,15 @@ class EmbedPMState(NamedTuple):
 
 
 def make_state(table: torch.Tensor, cache_ids: torch.Tensor,
-               backend=None) -> EmbedPMState:
+               backend=None, route_cap: int = 0) -> EmbedPMState:
     """Build state with a freshly synchronized cache.  ``cache_ids`` must
-    be sorted ascending; pad slots use V (matches no token)."""
+    be sorted ascending; pad slots use V (matches no token).  ``backend``
+    gathers the hot rows (on the mesh, routed in blocks of ``route_cap``
+    rows, which the caller decides on the host with `pm.collectives.
+    route_block`; 0: the replicated gather)."""
     cache_ids = cache_ids.to(torch.int32)
-    cache_rows = resolve(backend).refresh_rows(table, cache_ids)
+    cache_rows = resolve(backend).refresh_rows(table, cache_ids,
+                                               route_cap=route_cap)
     return EmbedPMState(table, cache_ids, cache_rows)
 
 
@@ -64,13 +76,29 @@ def refresh_cache(state: EmbedPMState,
 
 
 def combine_miss_buffer(backend, table, cache_rows, hit, cache_slot,
-                        buf_ids, buf_slot, *, kernel: bool = False):
+                        buf_ids, buf_slot, *, kernel: bool = False,
+                        n_miss=None, route_cap: int = 0):
     """THE shared managed-lookup data path: move the compact unique-miss
     buffer through the backend's vocab-parallel collective, append the
     all-zero trash row (slot M — overflow tokens land there), and
     per-token combine: hits read the local replica cache, misses read the
-    buffer.  Returns (T, D) rows."""
-    buf_rows = resolve(backend).gather_rows(table, buf_ids, kernel=kernel)
+    buffer.  Returns (T, D) rows.
+
+    On the mesh backend the buffer takes the routed owner-block gather
+    (`MeshBackend.gather_rows_routed`) with per-owner blocks of
+    ``route_cap`` rows, which the caller decides on the host from the
+    batch's miss set (`pm.collectives.route_block`; 0: the replicated
+    gather), and ``n_miss`` (the probe's unique-miss count: an int, or a
+    0-dim device tensor) tells it where the real ids end."""
+    be = resolve(backend)
+    if be.mesh_real and route_cap > 0:
+        M = buf_ids.shape[0]
+        n_valid = n_miss.clamp(max=M) if torch.is_tensor(n_miss) \
+            else min(int(n_miss), M)
+        buf_rows = be.gather_rows_routed(table, buf_ids, n_valid, route_cap,
+                                         kernel=kernel)
+    else:
+        buf_rows = be.gather_rows(table, buf_ids, kernel=kernel)
     buffer = torch.cat([buf_rows, buf_rows.new_zeros((1, table.shape[1]))])
     return ops.pm_combine(hit, cache_slot, buf_slot, cache_rows, buffer,
                           use_kernel=kernel)
@@ -78,7 +106,7 @@ def combine_miss_buffer(backend, table, cache_rows, hit, cache_slot,
 
 def _lookup_impl(table, cache_ids, cache_rows, tokens, miss_capacity,
                  strict=False, kernel=False, backend=None, residual=None,
-                 n_miss=None):
+                 n_miss=None, route_cap=0):
     B, S = tokens.shape
     T = B * S
     M = min(miss_capacity, T)
@@ -91,7 +119,8 @@ def _lookup_impl(table, cache_ids, cache_rows, tokens, miss_capacity,
     pc = residual.probe
     out = combine_miss_buffer(backend, table, cache_rows, pc.hit,
                               pc.cache_slot, pc.buf_ids, pc.buf_slot,
-                              kernel=kernel)
+                              kernel=kernel, n_miss=pc.n_miss,
+                              route_cap=route_cap)
     # rare overflow: correctness fallback via a direct (dense) gather.  The
     # reference branches on the device count (``lax.cond``); reading it
     # here would stall the host on the device, so the branch takes the
@@ -99,7 +128,7 @@ def _lookup_impl(table, cache_ids, cache_rows, tokens, miss_capacity,
     # knows from the loader's intent) and, without one, selects
     # unconditionally.  ``strict=True`` omits the fallback.
     if not strict and (n_miss is None or n_miss > M):
-        dense = resolve(backend).gather_rows(table, tok)
+        dense = resolve(backend).gather_rows(table, tok, kernel=kernel)
         out = torch.where(pc.overflow[:, None], dense, out)
     return out.reshape(B, S, table.shape[1]), residual
 
@@ -110,14 +139,15 @@ class _PMLookup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, cache_ids, cache_rows, tokens, miss_capacity,
-                strict, kernel, backend, residual, n_miss):
+                strict, kernel, backend, residual, n_miss, route_cap):
         out, residual = _lookup_impl(table, cache_ids, cache_rows, tokens,
                                      miss_capacity, strict, kernel, backend,
-                                     residual, n_miss)
+                                     residual, n_miss, route_cap)
         # the sort residual rides to the backward so the duplicate
         # pre-sum never re-sorts the tokens the forward already sorted
         ctx.save_for_backward(tokens, *residual.sort)
-        ctx.vocab = table.shape[0]
+        be = resolve(backend)    # on the mesh, table is this rank's block
+        ctx.vocab = table.shape[0] * (be.n_shards if be.mesh_real else 1)
         ctx.kernel, ctx.backend = kernel, backend
         return out
 
@@ -131,17 +161,21 @@ class _PMLookup(torch.autograd.Function):
         # ALL row gradients go to the table; the kernel path sums the
         # duplicate token gradients along the forward's sort residual (no
         # second sort) and writes the sums in one `segment_scatter_rows`
-        # launch
+        # launch.  The mesh always takes its routed path (the summed rows
+        # travel to their owners, whose block gradient comes back); the
+        # upstream gradient is the same on every rank, and each unique
+        # row is routed from exactly one rank, so nothing is counted n
+        # times
         grad_table = resolve(ctx.backend).scatter_row_grads(
             tok, gt, V, kernel=ctx.kernel,
             residual=SortResidual(order, sorted_ids, slot))
-        return (grad_table,) + (None,) * 9
+        return (grad_table,) + (None,) * 10
 
 
 def pm_lookup(table, cache_ids, cache_rows, tokens, miss_capacity: int,
               strict: bool = False, kernel: bool = False, backend=None,
               residual: Optional[StepResidual] = None,
-              n_miss: Optional[int] = None):
+              n_miss: Optional[int] = None, route_cap: int = 0):
     """Intent-managed embedding lookup (training mode, differentiable with
     respect to ``table``).
 
@@ -153,15 +187,60 @@ def pm_lookup(table, cache_ids, cache_rows, tokens, miss_capacity: int,
     kernels (`embed_gather` + `pm_combine` forward, `segment_scatter_rows`
     backward).  ``residual``: the step's precomputed `step_residual` for
     these (cache_ids, tokens); left None, the lookup derives it (still one
-    sort: the backward reuses the forward's).  Returns (B, S, D) rows."""
+    sort: the backward reuses the forward's).  ``route_cap``: the mesh's
+    routed block for this batch's misses, decided on the host from intent
+    (`combine_miss_buffer`).  Returns (B, S, D) rows."""
     return _PMLookup.apply(table, cache_ids, cache_rows, tokens,
                            miss_capacity, strict, kernel, backend, residual,
-                           n_miss)
+                           n_miss, route_cap)
 
 
 def plain_lookup(table, tokens):
     """Unmanaged lookup (static-partitioning baseline)."""
     return table[tokens.long()]
+
+
+class ServeLookupResult(NamedTuple):
+    """Outputs of the serving-mode lookup."""
+
+    out: torch.Tensor       # (B, K, D) rows; overflow slots are zeros and
+    #                         MUST NOT be served (re-queue their requests)
+    hit: torch.Tensor       # (B, K) bool, served from the replica cache
+    overflow: torch.Tensor  # (B, K) bool, unique misses beyond capacity
+    n_miss: torch.Tensor    # () int32, unique missed ids this batch
+
+
+def shard_partial_sum(table, ids, n_shards: int, *, kernel: bool = False):
+    """The emulated vocab-parallel gather under its old name: one
+    owner-masked partial per shard, summed (`EmulatedBackend.
+    gather_rows`)."""
+    return resolve(None, n_shards).gather_rows(table, ids, kernel=kernel)
+
+
+def serve_lookup(table, cache_ids, cache_rows, tokens, miss_capacity: int,
+                 *, n_shards: int = 1, kernel: bool = False,
+                 backend=None) -> ServeLookupResult:
+    """Serving-mode managed lookup with the probe on the device: read-only
+    (no backward, no optimizer), and it never falls back to a dense gather
+    silently — misses beyond the planned capacity come back as zeros with
+    their ``overflow`` flag set, and the caller re-queues those requests.
+    Only the compact (M+1, D) buffer moves through the backend's
+    collective.  On the mesh the host does not know the miss set here, so
+    the buffer takes the replicated gather; the runtime probes on the
+    host (`probe_host`, `planned_serve_lookup`) and routes it."""
+    B, K = tokens.shape
+    T = B * K
+    M = min(miss_capacity, T)
+    D = table.shape[1]
+    tok = tokens.reshape(T).to(torch.int32)
+    pc = probe_and_compact(cache_ids, tok, M)
+    out = combine_miss_buffer(resolve(backend, n_shards), table, cache_rows,
+                              pc.hit, pc.cache_slot, pc.buf_ids,
+                              pc.buf_slot, kernel=kernel, n_miss=pc.n_miss)
+    # overflow tokens route to the trash row -> zeros; make that explicit
+    out = torch.where(pc.overflow[:, None], 0.0, out)
+    return ServeLookupResult(out.reshape(B, K, D), pc.hit.reshape(B, K),
+                             pc.overflow.reshape(B, K), pc.n_miss)
 
 
 def plain_serve_lookup(table, tokens, *, n_shards: int = 1, backend=None):
@@ -299,14 +378,21 @@ class CacheProbeView:
 
 def planned_serve_lookup(table, cache_rows, buf_ids, hit, cache_slot,
                          buf_slot, *, n_shards: int = 1,
-                         kernel: bool = False, backend=None):
+                         kernel: bool = False, backend=None,
+                         n_miss: Optional[int] = None, route_cap: int = 0):
     """Device data path of the serving lookup, with the index stage
     already done (`probe_host` at admission — intent means the host knows
     the batch's miss set before the batch runs).  Only the (M+1, D)
     compact buffer moves through the backend's vocab-parallel collective;
     hits read the local replica cache; overflow slots read the all-zero
     trash row (``buf_slot == M``) and their requests are re-queued by the
-    runtime, never served.  Returns (T, D) rows."""
+    runtime, never served.  Returns (T, D) rows.
+
+    On the mesh ``route_cap`` (the batch's `pm.collectives.route_block`,
+    bounded by the plan's `route_capacity`; 0: the replicated gather) and
+    ``n_miss`` (the host probe's unique-miss count) route the buffer
+    through the owner-block gather."""
     return combine_miss_buffer(resolve(backend, n_shards), table,
                                cache_rows, hit, cache_slot, buf_ids,
-                               buf_slot, kernel=kernel)
+                               buf_slot, kernel=kernel, n_miss=n_miss,
+                               route_cap=route_cap)

@@ -8,8 +8,12 @@ continuously re-plans the replica cache from that streaming intent
 (`IntentPlanner.replan_from_queue` over the queued horizon), and batches
 execute through the read-only serving data path — the hand-written CUDA
 kernels or their plain versions (`ServeConfig.kernel`), over the emulated
-collective backend (DESIGN.md §10), no VJP, no optimizer.  The runtime
-runs on the card unless it is given ``device="cpu"``.
+collective backend (DESIGN.md §10) or the vocab-parallel mesh
+(``collective="mesh"``: every rank of the started process group runs
+this runtime on the same request stream and holds its block of the
+table; only each owner's run of a batch's unique misses crosses the
+wire, and admission bounds the misses per owner), no VJP, no optimizer.
+The runtime runs on the card unless it is given ``device="cpu"``.
 
 Re-planning is feedback-driven: a plan carries its own predicted miss
 rate (exact over the horizon it was built from), and the runtime replans
@@ -85,7 +89,7 @@ from repro_torch.device import resolve_device
 from repro_torch.obs.attribution import PlanAttribution
 from repro_torch.obs.telemetry import Telemetry
 from repro_torch.obs.trace import SpanTracer, make_tracer
-from repro_torch.pm.collectives import make_backend, resolve
+from repro_torch.pm.collectives import make_backend, resolve, route_block
 from repro_torch.pm.controller import (AUTO, Knob, OnlineController,
                                        capacity_ladder, is_auto,
                                        overlap_pays, pow2_ladder,
@@ -109,7 +113,9 @@ class ServeConfig:
     managed: bool = True         # False: plain vocab-parallel baseline
     n_shards: int = 1            # emulated vocab shards (collective cost)
     collective: str = "emulated"  # collective backend for the lookup
-    #   data path; only "emulated" is ported
+    #   data path: "emulated" | "mesh" (pm/collectives.py)
+    model_shards: int = 0        # mesh size for collective="mesh" (0 =
+    #   every rank of the started process group)
     kernel: bool = True          # the lookup's row copies run in the
     #   hand-written CUDA kernels (plain versions on CPU tensors); False
     #   runs the plain PyTorch versions on every device
@@ -206,19 +212,30 @@ class ServingRuntime:
                  telemetry: Optional[Telemetry] = None,
                  tracer: Optional[SpanTracer] = None, device=None):
         """``table``: (vocab, D) numpy array or tensor, moved to
-        ``device`` (None: ``cuda``, which must then be available)."""
+        ``device`` (None: ``cuda``, which must then be available).  On
+        the mesh only this rank's block of it is moved, and ``device``
+        must be of the process group's kind."""
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.table = torch.as_tensor(table).to(self.device)
-        if self.table.dim() != 2 or self.table.shape[0] != cfg.vocab:
-            raise ValueError(f"table shape {tuple(self.table.shape)} does "
+        table = torch.as_tensor(table)
+        if table.dim() != 2 or table.shape[0] != cfg.vocab:
+            raise ValueError(f"table shape {tuple(table.shape)} does "
                              f"not match vocab={cfg.vocab}")
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         # span tracer: an injected instance wins (the bench shares one
         # across runtimes); otherwise built from the cfg — default off
         self.tracer = make_tracer(cfg.trace, cfg.trace_sample,
                                   cfg.trace_capacity, tracer)
-        self.backend = make_backend(cfg.collective)
+        self.backend = make_backend(cfg.collective, cfg.model_shards)
+        if self.backend is not None:
+            if self.device.type != self.backend.device.type:
+                raise ValueError(f"the mesh's ranks run on "
+                                 f"{self.backend.device.type}, the runtime "
+                                 f"was asked for {self.device}")
+            self.device = self.backend.device
+            self.table = self.backend.place_table(table)
+        else:
+            self.table = table.to(self.device)
 
         # ---- knob resolution: "auto" fields belong to the controller
         self._auto = {name for name, v in (
@@ -279,9 +296,11 @@ class ServingRuntime:
         self.scheduler = MicroBatchScheduler(self.batch_requests,
                                              cfg.keys_per_request,
                                              telemetry=self.telemetry)
-        # a mesh collective would bound admission PER OWNER SHARD (the
-        # planner's `route_capacity`, DESIGN.md §12); the emulated backend
-        # has no owner shards, so this is 0 and the routed checks are off
+        # the mesh bounds admission PER OWNER SHARD too: the planner
+        # publishes `route_capacity` (the per-owner unique-miss bound over
+        # the queued horizon) and the routed gather carries blocks of that
+        # size (DESIGN.md §12); the emulated backend has no owner shards,
+        # so this is 0 and the routed checks are off
         self._owner_shards = (self.backend.n_shards
                               if self.backend is not None
                               and self.backend.mesh_real else 0)
@@ -338,17 +357,39 @@ class ServingRuntime:
         self._epoch_served0 = 0
 
     def _managed_fn(self, route_cap: int = 0):
-        """Serving data path for one routed block size (0 on the
-        emulated backend, which routes nothing)."""
+        """Serving data path for one routed block bound (the plan's
+        `route_capacity`; 0 on the emulated backend, which routes
+        nothing).  The callable takes the host probe's unique-miss count
+        ``nm`` and the ids it routes (``ids``, host) as its last
+        arguments: on the mesh they decide the batch's routed block."""
         cfg = self.cfg
         fn = self._managed_fns.get(route_cap)
         if fn is None:
-            def fn(t, cr, bi, h, cs, bs):
+            def fn(t, cr, bi, h, cs, bs, nm=None, ids=None):
+                cap = self._route_block(ids, bi.shape[0], route_cap) \
+                    if nm is not None else 0
                 return planned_serve_lookup(
                     t, cr, bi, h, cs, bs, n_shards=cfg.n_shards,
-                    kernel=cfg.kernel, backend=self.backend)
+                    kernel=cfg.kernel, backend=self.backend, n_miss=nm,
+                    route_cap=cap)
             self._managed_fns[route_cap] = fn
         return fn
+
+    def _route_block(self, ids: np.ndarray, m: int,
+                     route_cap: int = 0) -> int:
+        """The mesh's routed block for an ``m``-row buffer of the host ids
+        ``ids`` (`pm.collectives.route_block`); 0 off the mesh."""
+        if not self._owner_shards:
+            return 0
+        return route_block(ids, self.cfg.vocab, self._owner_shards, m,
+                           route_cap)
+
+    def _refresh_rows(self, ids_dev: torch.Tensor, ids: np.ndarray):
+        """The backend's replica gather of ``ids_dev``, the device copy of
+        the host ids ``ids``."""
+        return resolve(self.backend).refresh_rows(
+            self.table, ids_dev,
+            route_cap=self._route_block(ids, ids_dev.shape[0]))
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         """One host-to-device copy of a numpy array.  Non-blocking: a
@@ -415,8 +456,7 @@ class ServingRuntime:
         cache_ids = np.arange(min(self.cache_capacity, cfg.vocab),
                               dtype=np.int32)
         M = max(1, min(64, T))   # the planner ladder's floor bucket
-        cache_rows = resolve(self.backend).refresh_rows(
-            self.table, self._to_dev(cache_ids))
+        cache_rows = self._refresh_rows(self._to_dev(cache_ids), cache_ids)
 
         def host():
             return probe_host(cache_ids, tok, M)
@@ -442,7 +482,9 @@ class ServingRuntime:
 
         th = timed(host)
         td = timed(device, p)
-        self.overlap_ratio = (th + td) / max(th, td, 1e-9)
+        # one clock for all ranks of a mesh: the same pipeline depth
+        self.overlap_ratio = resolve(self.backend).agree(
+            (th + td) / max(th, td, 1e-9))
         self.telemetry.set("serve.overlap_ratio", self.overlap_ratio)
         self.telemetry.set("serve.overlap_host_ms", th * 1e3)
         self.telemetry.set("serve.overlap_device_ms", td * 1e3)
@@ -525,7 +567,8 @@ class ServingRuntime:
             wall = now - self._epoch_t0
             served = self.scheduler.n_served - self._epoch_served0
             if wall > 0 and served > 0:
-                reward = served / wall
+                # one clock for all ranks of a mesh: the same knob path
+                reward = resolve(self.backend).agree(served / wall)
                 self.telemetry.set("ctl.reward", reward)
                 for name, v in self._ctl.observe(reward).items():
                     self._apply_knob(name, v, rnd, res)
@@ -675,8 +718,7 @@ class ServingRuntime:
             reuse = np.zeros(staged.size, bool)
             new_ids = staged
         if old is None or new_ids.size == staged.size:
-            self._staging_rows = resolve(self.backend).refresh_rows(
-                self.table, ids_dev)
+            self._staging_rows = self._refresh_rows(ids_dev, staged)
         else:
             # merge: one local gather of the new rows + one take over the
             # concatenated (old ++ new ++ zero) source — pads read the
@@ -684,8 +726,7 @@ class ServingRuntime:
             nn = max(8, 1 << max(0, int(new_ids.size) - 1).bit_length())
             nids_p = np.full(nn, self.cfg.vocab, np.int32)
             nids_p[:new_ids.size] = new_ids
-            new_rows = resolve(self.backend).refresh_rows(
-                self.table, self._to_dev(nids_p))
+            new_rows = self._refresh_rows(self._to_dev(nids_p), new_ids)
             # offsets index the DEVICE concat: the old buffer's padded
             # row count, not the real staged-id count
             off = int(self._staging_rows.shape[0])
@@ -732,14 +773,14 @@ class ServingRuntime:
         self.telemetry.inc("serve.stage_topup_rows", int(new_ids.size))
 
     def _refresh(self, res: ServeResult) -> None:
-        self._cache_rows = resolve(self.backend).refresh_rows(
-            self.table, self._cache_ids)
+        self._cache_rows = self._refresh_rows(self._cache_ids,
+                                              self._cache_ids_np)
         if self._staged_ids is not None:
             # the staging buffer obeys the same staleness bound as the
             # replica cache: re-gathered on every refresh round, so an
             # out-of-band table update reaches staged rows within one
-            self._staging_rows = resolve(self.backend).refresh_rows(
-                self.table, self._staged_ids_dev)
+            self._staging_rows = self._refresh_rows(self._staged_ids_dev,
+                                                    self._staged_ids)
             self._cache_ext = torch.cat([self._cache_rows,
                                          self._staging_rows])
         res.refreshes += 1
@@ -953,7 +994,8 @@ class ServingRuntime:
                             res_lut[probe.buf_slot]]))
                         out = self._managed_fn(route_cap)(
                             self.table, self._cache_ext,
-                            self._to_dev(res_ids), idx[0], idx[1], idx[2])
+                            self._to_dev(res_ids), idx[0], idx[1], idx[2],
+                            n_res, res_ids[:n_res])
                     else:
                         idx = self._to_dev(np.stack([
                             probe.hit.astype(np.int32), probe.cache_slot,
@@ -961,7 +1003,9 @@ class ServingRuntime:
                         out = self._managed_fn(route_cap)(
                             self.table, self._cache_rows,
                             self._to_dev(probe.buf_ids), idx[0], idx[1],
-                            idx[2])
+                            idx[2], probe.n_miss,
+                            probe.buf_ids[:min(probe.n_miss,
+                                               probe.buf_ids.shape[0])])
                 hit_h = probe.hit.reshape(B, K)
                 over_h = probe.overflow.reshape(B, K)
                 nv = len(batch.reqs)

@@ -11,7 +11,25 @@ Per step:
      steps; in between, replicas serve reads at most one refresh round
      stale);
   4. the train step runs with the managed embedding path (with
-     ``LoopConfig.kernel`` through the hand-written CUDA kernels).
+     ``LoopConfig.kernel`` through the hand-written CUDA kernels; with
+     ``LoopConfig.collective="mesh"`` the table is vocab-sharded over the
+     ranks of a process group and the lookup, backward, update and
+     refresh run through the collectives of `pm.collectives.MeshBackend`).
+
+On the mesh every rank runs this loop on the same batches (the loader is
+seeded alike): the replicated parameters stay equal on every rank, and
+each rank holds its ``(V/n, D)`` block of the table and of its optimizer
+state.  The host knows each step's miss set from intent, so it decides
+the routed gather's per-owner block (``pm_route_cap``, `pm.collectives.
+route_block`) and no rank reads a count back from the device.  Every
+rank compacts the whole batch (the port's mesh has no data axis), so the
+planner bounds the step's unique misses over the whole batch, not per
+data shard as the reference's mesh does.  The controller's reward is measured
+on each rank's clock; rank 0's is used on every rank (`MeshBackend.
+agree`), so all ranks take the same knob path and enter the same
+collectives.  Checkpoints keep the reference's on-disk layout: the blocks
+are sent to rank 0, which writes them; a restore hands each rank its
+block.
 
 ``LoopResult.overflows`` counts steps whose actual unique-miss count
 exceeded the plan's capacity (forcing the lookup's dense fallback); with
@@ -59,7 +77,7 @@ from repro_torch.models.model import (init_model, load_params,
 from repro_torch.obs.telemetry import Telemetry
 from repro_torch.obs.trace import SpanTracer, make_tracer
 from repro_torch.optim.optimizers import AdaGradState, AdamState
-from repro_torch.pm.collectives import make_backend, resolve
+from repro_torch.pm.collectives import make_backend, resolve, route_block
 from repro_torch.pm.controller import (AUTO, Knob, OnlineController,
                                        capacity_ladder, is_auto,
                                        resolve_knob)
@@ -77,9 +95,12 @@ class LoopConfig:
     optimizer: str = "adagrad"
     pm: bool = True                  # intent-managed embedding on/off
     kernel: bool = False             # hand-written kernels on the hot path
-    collective: str = "emulated"     # "emulated" (the mesh backend is not
-    #                                  ported yet)
+    collective: str = "emulated"     # "emulated" | "mesh": the managed
+    #                                  lookup's collective backend; "mesh"
+    #                                  shards the table over the ranks of
+    #                                  the started process group
     model_shards: int = 0            # mesh size for collective="mesh"
+    #                                  (0 = every rank of the group)
     cache_capacity: Union[int, str] = AUTO  # replica-cache rows; "auto":
     #                                  steered by the planning window's
     #                                  intent demand over pow2 buckets
@@ -113,23 +134,37 @@ class LoopResult:
     knobs: Dict[str, object] = field(default_factory=dict)
 
 
-def checkpoint_tree(model, opt_state) -> dict:
+def checkpoint_tree(model, opt_state, backend=None) -> Optional[dict]:
     """``{"params", "opt"}`` in the reference's on-disk layout (stacked
-    layers, the optimizer state's NamedTuple fields)."""
+    layers, the optimizer state's NamedTuple fields).  On the mesh
+    (``backend`` a `MeshBackend`) every rank must call: rank 0 gets the
+    tree, whose ``embed`` leaves are the whole table in host memory
+    (`MeshBackend.gather_table`), and the other ranks get None."""
     L = model.cfg.n_layers
-    params = params_to_jax(dict(model.named_parameters()), L)
+    mesh = getattr(backend, "mesh_real", False)
+
+    def tree(named):
+        named = dict(named)
+        if mesh:
+            named["embed"] = backend.gather_table(named["embed"])
+            if named["embed"] is None:
+                return None
+        return params_to_jax(named, L)
+
+    params = tree(model.named_parameters())
     if isinstance(opt_state, AdaGradState):
-        opt = AdaGradState(params_to_jax(opt_state.accum, L))
+        opt = AdaGradState(tree(opt_state.accum))
     else:
-        opt = AdamState(params_to_jax(opt_state.mu, L),
-                        params_to_jax(opt_state.nu, L), opt_state.count)
-    return {"params": params, "opt": opt}
+        opt = AdamState(tree(opt_state.mu), tree(opt_state.nu),
+                        opt_state.count)
+    return None if params is None else {"params": params, "opt": opt}
 
 
-def restore(path: str, model, opt_state) -> int:
+def restore(path: str, model, opt_state, backend=None) -> int:
     """Load a checkpoint written by either package into ``model`` and
     ``opt_state`` in place; returns its step.  ``path`` is a step
-    directory or a root of ``step_*`` directories (its newest is used)."""
+    directory or a root of ``step_*`` directories (its newest is used).
+    On the mesh each rank takes its block of the ``embed`` leaves."""
     if not os.path.exists(os.path.join(path, "manifest.json")):
         latest = checkpoint.latest_step(path)
         if latest is None:
@@ -137,14 +172,23 @@ def restore(path: str, model, opt_state) -> int:
                 f"no checkpoint under {path!r} (expected a manifest or "
                 f"step_* subdirectories)")
         path = latest
-    tree, step = checkpoint.load(path, checkpoint_tree(model, opt_state))
-    load_params(model, params_from_jax(tree["params"]))
+    like = checkpoint_tree(model, opt_state)
+    shard = None
+    if getattr(backend, "mesh_real", False):
+        # the checkpoint holds the whole table: the template says so
+        shard = (backend.mesh.rank, backend.n_shards)
+        rows, D = model.embed.shape
+        for sub in [like["params"]] + [t for t in like["opt"]
+                                       if isinstance(t, dict)]:
+            sub["embed"] = torch.empty((rows * shard[1], D), device="meta")
+    tree, step = checkpoint.load(path, like)
+    load_params(model, params_from_jax(tree["params"], shard))
     states = [(opt_state.accum, tree["opt"].accum)] \
         if isinstance(opt_state, AdaGradState) else \
         [(opt_state.mu, tree["opt"].mu), (opt_state.nu, tree["opt"].nu)]
     with torch.no_grad():
         for own, saved in states:
-            for k, v in params_from_jax(saved).items():
+            for k, v in params_from_jax(saved, shard).items():
                 own[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
         if isinstance(opt_state, AdamState):
             opt_state.count.fill_(int(tree["opt"].count))
@@ -157,23 +201,36 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
                device=None) -> LoopResult:
     """Train ``cfg`` as ``lc`` says, on ``device`` (None: ``cuda``, which
     raises without a card; pass ``device="cpu"`` for the CPU, where every
-    kernel runs its plain version)."""
+    kernel runs its plain version).  With ``collective="mesh"`` every rank
+    of the started process group calls this, and ``device`` must be of
+    the group's kind (NCCL: the rank's card; gloo: the CPU)."""
     t0 = time.time()
     dev = resolve_device(device)
     bus = telemetry if telemetry is not None else Telemetry()
     tr = make_tracer(False, tracer=tracer)
+    # collective backend for the managed lookup: None = the emulated
+    # single-device reference; the mesh places the table (and its
+    # optimizer state) as blocks, one per rank
+    backend = make_backend(lc.collective, lc.model_shards) if lc.pm \
+        else None
+    mesh = backend is not None and backend.mesh_real
+    if mesh:
+        if dev.type != backend.device.type:
+            raise ValueError(f"the mesh's ranks run on "
+                             f"{backend.device.type}, the loop was asked "
+                             f"for {dev}")
+        dev = backend.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(lc.seed)
     model = init_model(cfg, gen)
+    if mesh:
+        model.embed = torch.nn.Parameter(
+            backend.place_table(model.embed.detach()))
     opt_state = make_opt_init(lc.optimizer)(model)
 
     res = LoopResult()
     if lc.init_from:
-        res.start_step = restore(lc.init_from, model, opt_state)
-
-    # collective backend for the managed lookup: None = the emulated
-    # single-device reference ("mesh" raises: not ported yet)
-    backend = make_backend(lc.collective) if lc.pm else None
+        res.start_step = restore(lc.init_from, model, opt_state, backend)
 
     # ---- knob resolution: "auto" fields belong to the controller
     auto = {name for name, v in (("cache_capacity", lc.cache_capacity),
@@ -206,7 +263,6 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
     planner = IntentPlanner(cfg.vocab_size, cache_capacity,
                             n_nodes=max(1, lc.n_shards),
                             plan_every=lc.plan_every,
-                            per_node_bound=backend is not None,
                             telemetry=bus) if lc.pm else None
     loader = IntentSignalingLoader(
         cfg, lc.batch, lc.seq, n_shards=max(1, lc.n_shards),
@@ -224,6 +280,7 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
 
     plan: Optional[PlacementPlan] = None
     cache_ids = None
+    cache_route_cap = 0
     cache_rows = None
     epoch_t0: Optional[float] = None
     epoch_loss: Optional[float] = None
@@ -232,6 +289,7 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
     # dispatched-but-unread steps; draining preserves the synchronous
     # loop's exact per-step ordering of losses/telemetry/logs
     pending: deque = deque()   # (step, loss_device, step_t0)
+    log_here = not mesh or backend.mesh.rank == 0
 
     def drain(limit: int) -> None:
         while len(pending) > limit:
@@ -244,7 +302,7 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
             bus.set("train.loss", loss_f)
             bus.observe("train.step_ms",
                         (time.perf_counter() - t0s) * 1e3)
-            if lc.log_every and s % lc.log_every == 0:
+            if lc.log_every and s % lc.log_every == 0 and log_here:
                 print(f"step {s:5d}  loss {loss_f:.4f}")
 
     # background plan-ahead: ONE worker builds the next boundary's plan
@@ -288,7 +346,9 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
                         and res.losses:
                     cur = float(np.mean(res.losses[-lc.plan_every:]))
                     if epoch_loss is not None and now > epoch_t0:
-                        reward = (epoch_loss - cur) / (now - epoch_t0)
+                        # one clock for all ranks: the same knob path
+                        reward = resolve(backend).agree(
+                            (epoch_loss - cur) / (now - epoch_t0))
                         bus.set("ctl.reward", reward)
                         for name, v in ctl.observe(reward).items():
                             if name == "refresh_every":
@@ -323,6 +383,10 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
                         plan = planner.plan(step)
                 cache_ids = torch.from_numpy(
                     np.asarray(plan.cache_ids, np.int32)).to(dev)
+                # the routed refresh's block, decided on the host
+                cache_route_cap = route_block(
+                    plan.cache_ids, cfg.vocab_size, backend.n_shards,
+                    len(plan.cache_ids)) if mesh else 0
                 res.plans += 1
                 bus.inc("train.plans")
                 replanned = True
@@ -363,7 +427,7 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
                 else:
                     with tr.span("train.refresh", a=step):
                         state = make_state(model.embed.detach(), cache_ids,
-                                           backend)
+                                           backend, cache_route_cap)
                         cache_rows = state.cache_rows
                 touched = np.zeros(0, dtype=np.int64)
                 touched_known = True
@@ -378,8 +442,14 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
             # can fire
             uniq = planner.signaled_ids(step)
             if uniq is not None:
-                n_miss = np.setdiff1d(uniq, plan.cache_ids).size
+                miss = np.setdiff1d(uniq, plan.cache_ids)
+                n_miss = miss.size
                 batch["pm_n_miss"] = int(n_miss)
+                if mesh:
+                    # the lookup's buffer holds the first M unique misses
+                    M = min(plan.miss_capacity, batch["tokens"].numel())
+                    batch["pm_route_cap"] = route_block(
+                        miss[:M], cfg.vocab_size, backend.n_shards, M)
                 if n_miss > plan.miss_capacity:
                     res.overflows += 1
                     bus.inc("train.overflows")
@@ -414,8 +484,10 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
         drain(pipeline_depth)
         if lc.ckpt_dir and lc.ckpt_every and step and \
                 step % lc.ckpt_every == 0:
-            checkpoint.save(f"{lc.ckpt_dir}/step_{step:07d}",
-                            checkpoint_tree(model, opt_state), step)
+            tree = checkpoint_tree(model, opt_state, backend)
+            if tree is not None:
+                checkpoint.save(f"{lc.ckpt_dir}/step_{step:07d}", tree,
+                                step)
 
     drain(0)
     if pending_plan is not None:

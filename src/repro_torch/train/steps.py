@@ -16,8 +16,20 @@ Two arms, chosen by the reference's gate ``sparse_embed``:
   `ops.segment_rows` from the step's sort residual, and the `adagrad_rows`
   kernel updates exactly the touched rows (`EmulatedBackend.update_rows`);
 * **dense**: autograd through the model, the managed lookup's backward
-  (with ``pm_kernel``: segment + the `scatter_rows` kernel) included, then
+  (with ``pm_kernel``: the `segment_scatter_rows` kernel) included, then
   dense AdaGrad (or Adam) on every parameter.
+
+On the mesh backend (`pm.collectives.MeshBackend`) the model's ``embed``
+is this rank's block of the table.  Untied models take the fused arm
+whatever ``pm_kernel`` is: `MeshBackend.update_rows` routes each summed
+row to its owner and updates it there.  Tied models take the dense arm
+with the head sharded with the table: the loss is
+`losses.vocab_parallel_ce` over the rank's vocab block, and the block's
+gradient (the routed lookup scatter plus the head's block) is the only
+table gradient any rank holds; dense AdaGrad sweeps that block.  Every
+other parameter is replicated: each rank computes the same gradient from
+the same batch and applies the same update, so the replicas stay equal
+bit for bit without a collective.
 
 Single-sort step: the step computes ONE `pm_forward.step_residual` from
 the batch tokens, and every index consumer — forward probe/compact,
@@ -36,6 +48,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.pm_forward import step_residual
+from repro_torch.models.losses import vocab_parallel_ce
 from repro_torch.models.model import loss_fn
 from repro_torch.optim.optimizers import (adagrad_init, adagrad_update,
                                           adam_init, adam_update)
@@ -59,7 +72,9 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
     (batch must then carry ``pm_cache_ids`` / ``pm_cache_rows``, and may
     carry the host's unique-miss count ``pm_n_miss``); ``pm_kernel``
     routes the lookup and the embedding update through the hand-written
-    kernels."""
+    kernels.  ``pm_backend``: the collective backend (None: the emulated
+    single-device reference; a `MeshBackend` runs the vocab-parallel
+    mesh)."""
     full_fp32_matmuls()
     update = adagrad_update if optimizer == "adagrad" else adam_update
     # sparse row updates need the gradient support to be exactly the batch
@@ -70,12 +85,19 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
                     and not cfg.tie_embeddings
                     and (pm_kernel or mesh_real))
 
+    # a tied head is sharded with the table on the mesh
+    vp_mesh = pm_backend.mesh if mesh_real and cfg.tie_embeddings else None
+
     def run_loss(model, batch, residual, embed_rows=None):
-        logits, aux, _ = model(batch, pm_miss_capacity=pm_miss_capacity,
-                               pm_strict=pm_strict, pm_kernel=pm_kernel,
-                               pm_backend=pm_backend, pm_residual=residual,
-                               embed_rows=embed_rows)
-        return loss_fn(logits, batch["labels"], aux)
+        out, aux, _ = model(batch, pm_miss_capacity=pm_miss_capacity,
+                            pm_strict=pm_strict, pm_kernel=pm_kernel,
+                            pm_backend=pm_backend, pm_residual=residual,
+                            embed_rows=embed_rows,
+                            skip_head=vp_mesh is not None)
+        if vp_mesh is not None:
+            return vocab_parallel_ce(out, model.embed.T, batch["labels"],
+                                     vp_mesh, aux=aux)
+        return loss_fn(out, batch["labels"], aux)
 
     def train_step(model, opt_state, batch):
         tokens = batch["tokens"]
@@ -106,7 +128,8 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
                                batch["pm_cache_rows"], tokens,
                                min(pm_miss_capacity, T), pm_strict,
                                pm_kernel, pm_backend, residual,
-                               batch.get("pm_n_miss"))
+                               batch.get("pm_n_miss"),
+                               batch.get("pm_route_cap", 0))
             else:
                 h0 = emb[tokens.long()]
         h0.requires_grad_(True)
@@ -117,7 +140,8 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
                        rest, lr=lr)
         # fused sparse AdaGrad on exactly the touched (unique) rows, where
         # the row lives (`EmulatedBackend.update_rows`: the `adagrad_rows`
-        # kernel, pads skipped)
+        # kernel, pads skipped; `MeshBackend.update_rows`: routed to the
+        # owner's block first)
         V = cfg.vocab_size
         gt = h0.grad.reshape(T, emb.shape[1])
         seg_ids, seg_g = ops.segment_rows(

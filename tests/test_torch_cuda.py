@@ -12,6 +12,7 @@ only PyTorch:
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import checkpoint
 from repro_torch.configs.registry import get_config
@@ -25,7 +26,10 @@ from repro_torch.kernels.ref import (adagrad_row_update_ref,
                                      segment_scatter_rows_ref)
 from repro_torch.kernels.scatter_rows import (scatter_rows,
                                               segment_scatter_rows)
+from repro_torch.launch.mesh import init_group
 from repro_torch.models.model import init_model
+from repro_torch.pm.collectives import (EmulatedBackend, make_backend,
+                                        route_block)
 from repro_torch.pm.embedding import make_state, pm_lookup
 from repro_torch.train.loop import LoopConfig, checkpoint_tree, train_loop
 from repro_torch.train.steps import make_opt_init
@@ -394,3 +398,104 @@ def test_runtime_on_the_card_equals_the_cpu(dev):
         np.testing.assert_array_equal(got.outputs[rid], rows)
     assert counts["embed_gather"] >= len(got.miss_trace) > 0
     assert counts["pm_combine"] >= len(got.miss_trace)
+
+
+@pytest.fixture
+def nccl(dev, tmp_path):
+    """The mesh at world size 1 over NCCL on the card (NCCL takes one card
+    per rank, and the card machine has one)."""
+    init_group(0, 1, str(tmp_path / "init"), device=dev, timeout_s=120)
+    try:
+        yield make_backend("mesh", 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_backend_on_the_card_equals_emulated(dev, nccl):
+    """Every routed method of the one-rank mesh against the emulated
+    backend on the card, both through the kernels: the same bits (the
+    gradient is summed per run in sorted order on both)."""
+    assert dist.get_backend() == "nccl"
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    V, D, T, M = 4096, 576, 512, 128
+    table = torch.randn((V, D), generator=g, device=dev)
+    emu = EmulatedBackend(1)
+    ops.reset_launch_counts()
+    ids = torch.sort(torch.randperm(V, generator=g, device=dev)[:M])[0]
+    ids = ids.to(torch.int32)
+    cap = route_block(ids[:M - 9].cpu().numpy(), V, 1, M)
+    got = nccl.gather_rows_routed(table, ids, M - 9, cap, kernel=True)
+    want = emu.gather_rows(table, ids, kernel=True)
+    want[M - 9:] = 0
+    assert torch.equal(raw(got), raw(want))
+    tok = torch.randint(0, V, (T,), generator=g, device=dev,
+                        dtype=torch.int32)
+    tok[:64] = tok[64:128]
+    gr = torch.randn((T, D), generator=g, device=dev)
+    res = ops.sorted_slots(tok, T)
+    got = nccl.scatter_row_grads(tok, gr, V, kernel=True, residual=res)
+    want = emu.scatter_row_grads(tok, gr, V, kernel=True, residual=res)
+    assert torch.equal(raw(got), raw(want))
+    seg_ids, seg_g = ops.segment_rows(tok, gr, n_slots=T, pad_id=V,
+                                      residual=res)
+    accum = torch.rand((V, D), generator=g, device=dev)
+    t1, a1 = table.clone(), accum.clone()
+    nccl.update_rows(t1, a1, seg_ids, seg_g, lr=0.01, kernel=True)
+    emu.update_rows(table, accum, seg_ids, seg_g, lr=0.01, kernel=True)
+    assert torch.equal(raw(t1), raw(table))
+    assert torch.equal(raw(a1), raw(accum))
+    cache = torch.full((256,), V, dtype=torch.int32)
+    cache[:200] = torch.sort(torch.randperm(V)[:200])[0]
+    delta = torch.full((64,), V, dtype=torch.int32)
+    delta[:40] = cache[:200:5]
+    slots = torch.full((64,), 256, dtype=torch.int32)
+    slots[:40] = torch.arange(0, 200, 5)
+    rows = nccl.refresh_rows(table, cache.to(dev),
+                             route_cap=route_block(cache.numpy(), V, 1, 256))
+    assert torch.equal(raw(rows), raw(emu.refresh_rows(table, cache.to(dev))))
+    base = torch.zeros((256, D), device=dev)
+    got = nccl.refresh_rows_delta(table, base.clone(), delta, slots,
+                                  kernel=True)
+    want = emu.refresh_rows_delta(table, base.clone(), delta, slots,
+                                  kernel=True)
+    assert torch.equal(raw(got), raw(want))
+    counts = ops.launch_counts()
+    for name in ("embed_gather", "adagrad_rows", "scatter_rows",
+                 "segment_scatter_rows"):
+        assert counts[name] > 0, name
+
+
+@pytest.mark.parametrize("arch", ["nemotron-4-15b", "smollm-135m"])
+def test_mesh_train_loop_on_the_card(dev, nccl, arch):
+    """The training loop on the one-rank NCCL mesh against the emulated
+    loop on the card, both through the kernels."""
+    cfg = get_config(arch, smoke=True)
+    kw = dict(steps=20, batch=2, seq=16, refresh_every=2, pipeline_depth=1,
+              kernel=True, log_every=0)
+    want = train_loop(cfg, LoopConfig(**kw))
+    got = train_loop(cfg, LoopConfig(collective="mesh", model_shards=1,
+                                     **kw))
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-4,
+                               atol=1e-5)
+    assert got.overflows == 0 and got.plans == want.plans
+
+
+def test_mesh_runtime_on_the_card(dev, nccl):
+    """The serving runtime on the one-rank NCCL mesh: exact rows."""
+    table = np.random.default_rng(0).normal(size=(2048, 8)).astype(
+        np.float32)
+    live = DriftingZipfStream(2048, 8, zipf_a=1.2, arrival_rate=16,
+                              scenario="rotate", rotate_every=10, seed=5)
+    keys = {}
+    stream = ReplayStream.record(live, 50)
+    for wave in stream.per_round:
+        for r in wave:
+            keys[r.rid] = r.keys
+    cfg = ServeConfig(vocab=2048, batch_requests=16, keys_per_request=8,
+                      cache_capacity=64, pipeline_depth=2, summary=False,
+                      collective="mesh", model_shards=1)
+    res = ServingRuntime(table, cfg).run(stream, 30, collect_outputs=True)
+    assert res.served > 0 and res.zero_served == 0
+    for rid, rows in res.outputs.items():
+        np.testing.assert_array_equal(rows, table[keys[rid]])

@@ -149,6 +149,9 @@ def test_default_device_is_the_card():
 
 
 def test_mesh_backend_not_ported():
-    with pytest.raises(NotImplementedError):
+    """The mesh backend is ported now; without a started process group it
+    raises instead of falling back to the emulated backend (the mesh
+    itself is tested in test_torch_mesh.py)."""
+    with pytest.raises(RuntimeError, match="process group"):
         P.ServingRuntime(table(), config(P, collective="mesh"),
                          device="cpu")

@@ -24,7 +24,10 @@ order it:
    fp32 sum); then times kernel, plain version and the PyTorch library
    call with CUDA events at the serving and training paths' shapes (the
    gather on both its paths), and each wrapper's and library call's host
-   time per call (1000 calls, no synchronise between them);
+   time per call (1000 calls, no synchronise between them); then times
+   the four kernels of qwen3-moe-30b-a3b's training path the same way at
+   its shapes (its 151936 x 2048 embedding, 512-token steps, the
+   1024-row cache);
 4. serves a drifting Zipf request stream through
    `repro_torch.serve.ServingRuntime` at full width (vocab 256000, D 6144,
    64 requests of 64 keys per batch, 64 emulated shards) twice — with the
@@ -42,16 +45,27 @@ order it:
    `repro_torch.train.loop.train_loop` (intent-managed embedding, AdaGrad,
    seeded random init): nemotron-4-15b at its published widths with 4 of
    its 32 layers (untied: the fused sparse arm, `adagrad_rows`, and the
-   delta refresh, `embed_gather` and `scatter_rows`) and smollm-135m at
+   delta refresh, `embed_gather` and `scatter_rows`), smollm-135m at
    its full published config (tied: the lookup's backward,
-   `segment_scatter_rows`), 16 steps of 8 x 64 tokens each through the
-   kernels (AdaGrad at lr 1e-4 on nemotron, where the reference's 0.01
-   diverges, and 0.01 on smollm),
+   `segment_scatter_rows`) and qwen3-moe-30b-a3b at its published widths
+   with 4 of its 48 layers (the MoE family, untied: the fused arm), 16
+   steps of 8 x 64 tokens each through the
+   kernels (AdaGrad at lr 1e-4 on nemotron and qwen3-moe, where the
+   reference's 0.01 diverges, and 0.01 on smollm),
    checks finite losses, no overflow and which kernels ran, then the same
    run through the plain versions, whose loss trace must agree within
    rtol 1e-4 / atol 1e-5; then trains each again, untraced and under
    `torch.profiler`, to show where a step's time goes;
-6. starts a one-rank NCCL process group on the card and runs the
+6. decodes smollm-135m (full config), qwen3-moe-30b-a3b (4 of 48
+   layers) and mixtral-8x22b (2 of 56 layers, its sliding window, at
+   D 6144): a batch of 8 with a 64-token prompt, a fused prefill into a
+   KV cache, then 32 greedy one-token steps; holds the fused prefill's
+   last logits against a token-by-token prefill and the decoded logits
+   against one teacher-forced forward over the consumed tokens, within
+   2e-3 (the MoE models at the positions where, there and before, both
+   paths routed alike and dropped nothing; the count left out is
+   printed), then times prefill and steps;
+7. starts a one-rank NCCL process group on the card and runs the
    vocab-parallel mesh (`repro_torch.pm.collectives.MeshBackend`) at
    world size 1: its routed gather, gradient scatter, AdaGrad update and
    delta refresh at nemotron-4-15b's width against `EmulatedBackend(1)`
@@ -64,7 +78,7 @@ order it:
    `vocab_parallel_ce`) over it, whose loss traces must agree with the
    emulated kernel runs within rtol 1e-4 / atol 1e-5 with no overflow
    step;
-7. prints the kernel table as one JSON line, the card line and, last, the
+8. prints the kernel table as one JSON line, the card line and, last, the
    device line.
 
 Any failure raises, so the script exits non-zero before those last lines.
@@ -114,15 +128,27 @@ N_ROWS = 512                  # training step: 8 x 64 tokens, one slot each
 SMOLLM = (49152, 576)         # smollm-135m (tied) embedding: scatter shape
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 16, 8, 64
 PROFILE_STEPS = 12
-NEMOTRON_LAYERS = 4           # of 32: fp32 AdaGrad state of 32 layers
-#                               does not fit 80 GB
+# layers kept of the published depth: the fp32 AdaGrad state (parameters,
+# gradients and accumulators) of every layer does not fit 80 GB —
+# nemotron-4-15b's 32 layers, and qwen3-moe-30b-a3b's 48 (2.46 GB of
+# parameters per layer, about 7.4 GB of state: 354 GB in all)
+TRAIN_LAYERS = {"nemotron-4-15b": 4, "qwen3-moe-30b-a3b": 4}
+MOE_ARCH = "qwen3-moe-30b-a3b"
 TRAIN_KNOBS = dict(cache_capacity=1024, refresh_every=2, pipeline_depth=1,
                    n_shards=4, plan_every=8)
 # nemotron at its full width diverges under the reference's default lr
 # 0.01 (AdaGrad's first step moves every weight by about +-lr, large
 # against a 1/sqrt(6144) init: loss 13.2 -> 70 in four steps), and a
 # diverging run amplifies rounding into a different trace; 1e-4 trains
-TRAIN_LR = {"nemotron-4-15b": 1e-4, "smollm-135m": 1e-2}
+TRAIN_LR = {"nemotron-4-15b": 1e-4, "smollm-135m": 1e-2,
+            MOE_ARCH: 1e-4}
+# decoding: a batch of 8 with a 64-token prompt, a fused prefill, then 32
+# greedy one-token steps; (arch, layers kept) — mixtral-8x22b's 2 of 56
+# layers hold about 21 GB of fp32 weights
+DECODE_B, DECODE_PROMPT, DECODE_STEPS = 8, 64, 32
+DECODE = (("smollm-135m", None), (MOE_ARCH, 4), ("mixtral-8x22b", 2))
+DECODE_TOL = 2e-3             # the reference's decode-vs-forward tolerance
+MOE_TABLE = (151936, 2048)    # qwen3-moe-30b-a3b's embedding
 TRACE_RTOL, TRACE_ATOL = 1e-4, 1e-5
 SERVE_KERNELS = ("embed_gather", "pm_combine")
 HOST_CALLS = 1000             # calls per host-time measurement
@@ -619,7 +645,7 @@ def check_segment_scatter(dev, dims=DIMS, seed: int = SEED) -> dict:
     (49153, D) buffer, fp32 and bf16 at every width in ``dims``: bit for
     bit against the plain version run on CPU copies (both add each run in
     sorted order), and within `reorder_tolerance` of the plain version on
-    the card (whose `index_add_` adds with atomics).  Returns the largest
+    the card (`ref.index_add_in_order`).  Returns the largest
     absolute difference from the CPU copies (0.0 when bitwise) and the
     largest ratio of the card difference to its tolerance."""
     import torch
@@ -659,12 +685,13 @@ def check_segment_scatter(dev, dims=DIMS, seed: int = SEED) -> dict:
     return {"max_abs_err": err, "card_diff_over_tolerance": ratio}
 
 
-def time_training_kernels(table, n=N_ROWS, seed: int = SEED) -> dict:
+def time_training_kernels(table, n=N_ROWS, scatter=SMOLLM,
+                          seed: int = SEED) -> dict:
     """Kernel, plain version and library composition at the training
     step's shapes: the AdaGrad update of n = 512 unique rows of the full
     table (in place, with an fp32 accumulator of the table's size) and
-    the scatter of 512 rows into smollm-135m's (49153, 576) gradient
-    buffer.  Ids hold no pads, so the library calls take them too.  The
+    the scatter of 512 rows into a (rows + 1, D) buffer, ``scatter`` =
+    (rows, D) (smollm-135m's (49153, 576) gradient buffer by default).  Ids hold no pads, so the library calls take them too.  The
     update cycles through enough id sets that the table and accumulator
     rows they touch exceed twice the L2 cache, so each call reads its
     rows from HBM as a training step's fresh ids do (the gradient rows,
@@ -698,7 +725,7 @@ def time_training_kernels(table, n=N_ROWS, seed: int = SEED) -> dict:
         return adagrad_row_update(table, accum, next(cyc)[0], grads, lr=lr,
                                   eps=eps)
 
-    Vs, Ds = SMOLLM
+    Vs, Ds = scatter
     s_ids = torch.randperm(Vs, generator=g, device=dev)[:n].to(torch.int32)
     s_idl = s_ids.long()
     s_rows = torch.randn((n, Ds), generator=g, device=dev)
@@ -779,6 +806,31 @@ def time_segment_scatter(dev, seed: int = SEED) -> dict:
 
 
 # CUgraphNodeType values (cuda.h) of the nodes that run work on the card
+def time_at_moe_shapes(dev, seed: int = SEED) -> dict:
+    """The four kernels of qwen3-moe-30b-a3b's training path, timed as
+    above, at its shapes: its untied (151936, 2048) fp32 embedding, one
+    8 x 64 step's 512 tokens, the smoke's 1024-row replica cache.
+    `embed_gather` reads 512 rows of the table (the miss buffer holds at
+    most the batch's tokens; one id set, 4 MiB, so the L2 serves repeats;
+    ``embed_gather_hbm`` rotates id sets past twice the L2 instead),
+    `pm_combine` combines the 512 tokens from the cache and a 512-row
+    miss buffer, `adagrad_rows` updates 512 rows of the table and its
+    accumulator, and `scatter_rows` writes 512 rows into the (1025, 2048)
+    cache, as the delta refresh does."""
+    import torch
+    V, D = MOE_TABLE
+    C = TRAIN_KNOBS["cache_capacity"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 8)
+    table = torch.empty((V, D), device=dev).normal_(generator=g)
+    out = time_kernels(table, n=N_ROWS, T=N_ROWS, C=C, M=N_ROWS)
+    out.update(time_training_kernels(table, scatter=(C, D)))
+    out["embed_gather_hbm"] = gather_at_sizes(table, [N_ROWS])[N_ROWS]
+    del table
+    free_card()
+    return out
+
+
 GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
 
 
@@ -880,11 +932,11 @@ def backward_launches(dev, seed: int = SEED) -> dict:
 
 
 def train_config(arch: str):
-    """The published config; nemotron-4-15b cut to NEMOTRON_LAYERS."""
+    """The published config, cut to the depth in TRAIN_LAYERS."""
     from repro_torch.configs.registry import get_config
     cfg = get_config(arch)
-    if arch == "nemotron-4-15b":
-        cfg = dataclasses.replace(cfg, n_layers=NEMOTRON_LAYERS)
+    if arch in TRAIN_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS[arch])
     return cfg
 
 
@@ -1048,6 +1100,186 @@ def train_profile(arch: str, steps: int = PROFILE_STEPS) -> dict:
                                          key=lambda kv: -kv[1])[:8]),
             "host_span_ms": host_ms,
             "peak_alloc_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def decode_model(arch: str, n_layers, dev):
+    """The published config (cut to ``n_layers`` where given) and a model
+    with seeded random weights on ``dev``."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import init_model
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    return cfg, init_model(cfg, gen)
+
+
+def greedy_decode(model, cfg, prompt, steps: int, routes=None):
+    """A fused prefill of ``prompt`` (B, P) into a fresh cache, then
+    ``steps`` greedy one-token steps (`make_prefill_decode_step`,
+    `make_serve_step`).  Returns the logits (steps + 1, B, V) — the
+    prefill's last position's, then each step's — the (B, P + steps)
+    tokens the model consumed, and the prefill's and the steps' host
+    seconds (each ended by a synchronise).  ``routes``: a list that
+    collects each MoE layer's `Routing`, chunk by chunk."""
+    import torch
+    from repro_torch.models.model import init_cache
+    from repro_torch.train.steps import (make_prefill_decode_step,
+                                         make_serve_step)
+    B, P = prompt.shape
+    prefill, serve = make_prefill_decode_step(cfg), make_serve_step(cfg)
+    cache = init_cache(cfg, B, P + steps, device=prompt.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = prefill(model, cache, prompt, routes=routes)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, toks = [lg], [prompt]
+    for _ in range(steps):
+        tok = lg.argmax(dim=-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+        lg, cache = serve(model, cache, tok, routes=routes)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return torch.stack(logits), torch.cat(toks, dim=1), t1 - t0, t2 - t1
+
+
+def route_table(routes, n_layers: int, B: int):
+    """Per layer, the top-k experts (L, B, S, K) and whether every
+    assignment was kept (L, B, S), at each position of each sequence,
+    from `Routing` records collected chunk by chunk (L per forward; a
+    chunk's tokens are batch-major)."""
+    import torch
+    chunks = [routes[i:i + n_layers]
+              for i in range(0, len(routes), n_layers)]
+    K = routes[0].topk_idx.shape[1]
+    topk = torch.stack([torch.cat([c[l].topk_idx.reshape(B, -1, K)
+                                   for c in chunks], dim=1)
+                        for l in range(n_layers)])
+    kept = torch.stack([torch.cat([c[l].keep.reshape(B, -1, K).all(dim=-1)
+                                   for c in chunks], dim=1)
+                        for l in range(n_layers)])
+    return topk, kept
+
+
+def comparable(a, b):
+    """(B, S) bool: the positions whose logits two paths must agree on —
+    where, at that position and every earlier one of its sequence (which
+    its attention reads), no layer of either path dropped an assignment
+    and both chose the same top-k experts.  ``a``, ``b``: `route_table`s
+    (None for a model without experts)."""
+    if a is None:
+        return None
+    ok = (a[1] & b[1] & (a[0] == b[0]).all(dim=-1)).all(dim=0)
+    return ok.int().cumprod(dim=1).bool()
+
+
+def decode_checks(model, cfg, prompt) -> dict:
+    """The decode path against two others on the same weights, within
+    DECODE_TOL: the fused prefill's last logits against a token-by-token
+    prefill (P one-token steps), and the prefill's and the 32 steps'
+    logits against one teacher-forced forward over the consumed tokens.
+    With experts, a prompt chunk routes through expert capacity at once,
+    unlike the token loop, so each comparison keeps the positions
+    `comparable` finds and reports how many it left out."""
+    import torch
+    from repro_torch.models.model import init_cache
+    from repro_torch.train.steps import make_serve_step
+    B, P = prompt.shape
+    L = cfg.n_layers
+    moe = bool(cfg.n_experts)
+    r_dec = [] if moe else None
+    logits, toks, _, _ = greedy_decode(model, cfg, prompt, DECODE_STEPS,
+                                       r_dec)
+    if tuple(logits.shape) != (DECODE_STEPS + 1, B, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.arch_id}: decode logits "
+                             f"{tuple(logits.shape)} not finite or misshapen")
+    # token-by-token prefill
+    r_loop = [] if moe else None
+    serve = make_serve_step(cfg)
+    cache = init_cache(cfg, B, P, device=prompt.device)
+    for t in range(P):
+        lg_loop, cache = serve(model, cache, prompt[:, t:t + 1], r_loop)
+    # teacher forcing over the consumed tokens
+    r_tf = [] if moe else None
+    with torch.no_grad():
+        tf, _, _ = model({"tokens": toks}, routes=r_tf)
+    tf = tf[:, P - 1:].transpose(0, 1)               # (steps + 1, B, V)
+    if moe:
+        dec = route_table(r_dec, L, B)         # the prefill, then the steps
+        loop, forced = route_table(r_loop, L, B), route_table(r_tf, L, B)
+        keep_a = comparable((dec[0][:, :, :P], dec[1][:, :, :P]),
+                            loop)[:, P - 1]
+        keep_b = comparable(dec, forced)[:, P - 1:].T
+    else:
+        keep_a = torch.ones(B, dtype=torch.bool, device=prompt.device)
+        keep_b = torch.ones((DECODE_STEPS + 1, B), dtype=torch.bool,
+                            device=prompt.device)
+    out = {}
+    for name, got, want, keep in (
+            ("prefill_vs_token_loop", logits[0], lg_loop, keep_a),
+            ("decode_vs_teacher_forced", logits, tf, keep_b)):
+        diff = (got - want).abs()
+        bad = (diff > DECODE_TOL + DECODE_TOL * want.abs()).any(dim=-1) \
+            & keep
+        if bool(bad.any()) or not bool(keep.any()):
+            raise AssertionError(
+                f"{cfg.arch_id}: {name}: {int(bad.sum())} positions beyond "
+                f"{DECODE_TOL}, {int(keep.sum())} compared")
+        out[name] = {"positions_compared": int(keep.sum()),
+                     "positions_left_out": int((~keep).sum()),
+                     "max_abs_diff": float(diff[keep].max())}
+    if moe:
+        out["dropped_assignments"] = {
+            "prefill": int((~dec[1][:, :, :P]).sum()),
+            "steps": int((~dec[1][:, :, P:]).sum()),
+            "token_loop": int((~loop[1]).sum()),
+            "teacher_forced": int((~forced[1]).sum())}
+        if out["dropped_assignments"]["steps"] or \
+                out["dropped_assignments"]["token_loop"]:
+            raise AssertionError(f"{cfg.arch_id}: a one-token step dropped")
+    return out
+
+
+def decode(arch: str, n_layers, dev) -> dict:
+    """Decoding of one model (seeded random weights on the card, a seeded
+    random prompt of DECODE_B x DECODE_PROMPT tokens): `decode_checks`,
+    then a timed run of the same prefill and DECODE_STEPS greedy steps.
+    The decode path launches none of the kernels (its embedding is a
+    plain index, as the reference's ``jnp.take``)."""
+    import torch
+    from repro_torch.kernels import ops
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, model = decode_model(arch, n_layers, dev)
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(DECODE_B, DECODE_PROMPT)).astype(np.int32)
+    ).to(dev)
+    ops.reset_launch_counts()
+    checks = decode_checks(model, cfg, prompt)
+    _, _, prefill_s, steps_s = greedy_decode(model, cfg, prompt,
+                                             DECODE_STEPS)
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"{arch}: decoding launched {launches}")
+    out = {"arch": arch, "n_layers": cfg.n_layers,
+           "batch": DECODE_B, "prompt": DECODE_PROMPT,
+           "steps": DECODE_STEPS, "cache_positions":
+               DECODE_PROMPT + DECODE_STEPS,
+           "prefill_ms": prefill_s * 1e3,
+           "decode_ms_per_token": steps_s * 1e3 / DECODE_STEPS,
+           "decode_tokens_per_s": DECODE_B * DECODE_STEPS / steps_s,
+           "prefill_tokens_per_s": DECODE_B * DECODE_PROMPT / prefill_s,
+           "checks": checks,
+           "peak_alloc_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del model
+    free_card()
+    return out
 
 
 @contextlib.contextmanager
@@ -1318,13 +1550,13 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
-    print(f"[1/7] device: {card} ({torch.cuda.get_device_name(0)}, "
+    print(f"[1/8] device: {card} ({torch.cuda.get_device_name(0)}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
     t0 = time.perf_counter()
     lib = build.build()
     build.library()
-    print(f"[2/7] built {lib.relative_to(Path(__file__).resolve().parent)} "
+    print(f"[2/8] built {lib.relative_to(Path(__file__).resolve().parent)} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     table = make_table(dev)
@@ -1332,32 +1564,34 @@ def main() -> int:
     err.update(check_training_kernels(table))
     seg = check_segment_scatter(dev)
     err["segment_scatter_rows"] = seg["max_abs_err"]
-    print("[3/7] embed_gather paths " + json.dumps(paths), flush=True)
-    print("[3/7] segment_scatter_rows " + json.dumps(seg), flush=True)
+    print("[3/8] embed_gather paths " + json.dumps(paths), flush=True)
+    print("[3/8] segment_scatter_rows " + json.dumps(seg), flush=True)
     times = time_kernels(table)
     times.update(time_training_kernels(table))
     times["segment_scatter_rows"] = time_segment_scatter(dev)
-    print("[3/7] kernels == plain versions, bitwise: "
+    print("[3/8] kernels == plain versions, bitwise: "
           + json.dumps({k: {"max_abs_err": err[k], **times[k]}
                         for k in err}), flush=True)
+    print(f"[3/8] kernels at {MOE_ARCH}'s shapes " + json.dumps(
+        dict(time_at_moe_shapes(dev), card=card)), flush=True)
 
     runs = [serve(table),
             serve(table, cache_capacity=512, pipeline_depth=2)]
     for r in runs:
-        print("[4/7] serve " + json.dumps(r), flush=True)
+        print("[4/8] serve " + json.dumps(r), flush=True)
     sizes = sorted(set(serve_sizes(runs)) | {N_IDS})
-    print("[4/7] embed_gather at the serving runs' sizes and n=4096, both "
+    print("[4/8] embed_gather at the serving runs' sizes and n=4096, both "
           "paths " + json.dumps(gather_at_sizes(table, sizes)), flush=True)
     for knobs in ({}, {"cache_capacity": 512, "pipeline_depth": 2}):
-        print("[4/7] profile " + json.dumps(profile(table, **knobs)),
+        print("[4/8] profile " + json.dumps(profile(table, **knobs)),
               flush=True)
     del table
     free_card()
 
-    print("[5/7] lookup backward launches " + json.dumps(
+    print("[5/8] lookup backward launches " + json.dumps(
         backward_launches(dev)), flush=True)
-    trains = []
-    for arch in ("nemotron-4-15b", "smollm-135m"):
+    trains, moe_trains = [], []
+    for arch in ("nemotron-4-15b", "smollm-135m", MOE_ARCH):
         ker, plain = train(arch, True), train(arch, False)
         np.testing.assert_allclose(ker["losses"], plain["losses"],
                                    rtol=TRACE_RTOL, atol=TRACE_ATOL,
@@ -1365,32 +1599,36 @@ def main() -> int:
         diff = float(np.max(np.abs(np.subtract(ker["losses"],
                                                plain["losses"]))))
         for r in (ker, plain):
-            print("[5/7] train " + json.dumps(r), flush=True)
-        print(f"[5/7] {arch}: kernel vs plain loss trace, max abs diff "
+            print("[5/8] train " + json.dumps(r), flush=True)
+        print(f"[5/8] {arch}: kernel vs plain loss trace, max abs diff "
               f"{diff!r} (rtol {TRACE_RTOL}, atol {TRACE_ATOL})", flush=True)
-        trains.append(ker)
-    for arch in ("nemotron-4-15b", "smollm-135m"):
-        print("[5/7] train profile " + json.dumps(train_profile(arch)),
-              flush=True)
+        (moe_trains if arch == MOE_ARCH else trains).append(ker)
+    for arch in ("nemotron-4-15b", "smollm-135m", MOE_ARCH):
+        print("[5/8] train profile " + json.dumps(
+            dict(train_profile(arch), card=card)), flush=True)
+
+    for arch, layers in DECODE:
+        print("[6/8] decode " + json.dumps(
+            dict(decode(arch, layers, dev), card=card)), flush=True)
 
     import torch.distributed as dist
     with nccl_group(dev) as be:
-        print(f"[6/7] process group: backend {dist.get_backend()}, world "
+        print(f"[7/8] process group: backend {dist.get_backend()}, world "
               f"size {dist.get_world_size()}, {type(be).__name__} of "
               f"{be.n_shards} shard on {be.device} ({card})", flush=True)
         table = make_table(dev)
         mesh_err = check_mesh_backend(be, table)
-        print("[6/7] mesh backend == emulated backend, bitwise: "
+        print("[7/8] mesh backend == emulated backend, bitwise: "
               + json.dumps(dict(mesh_err, card=card)), flush=True)
         serve_runs, serve_ms, serve_prof = serve_mesh(table)
         for r in serve_runs:
-            print("[6/7] mesh serve " + json.dumps(dict(r, card=card)),
+            print("[7/8] mesh serve " + json.dumps(dict(r, card=card)),
                   flush=True)
-        print("[6/7] mesh serve ms per round in turns (emulated, mesh, mesh,"
+        print("[7/8] mesh serve ms per round in turns (emulated, mesh, mesh,"
               " emulated; 32 rounds, one shard) "
               + json.dumps(dict(serve_ms, card=card)), flush=True)
         for name, prof in serve_prof.items():
-            print(f"[6/7] profile, {name}, one shard " + json.dumps(
+            print(f"[7/8] profile, {name}, one shard " + json.dumps(
                 dict(prof, card=card)), flush=True)
         del table
         free_card()
@@ -1402,19 +1640,20 @@ def main() -> int:
                 err_msg=f"{r['arch']}: mesh vs emulated trace")
             diff = float(np.max(np.abs(np.subtract(r["losses"],
                                                    emu["losses"]))))
-            print("[6/7] mesh train " + json.dumps(dict(r, card=card)),
+            print("[7/8] mesh train " + json.dumps(dict(r, card=card)),
                   flush=True)
-            print(f"[6/7] {r['arch']}: mesh vs emulated kernel loss trace, "
+            print(f"[7/8] {r['arch']}: mesh vs emulated kernel loss trace, "
                   f"max abs diff {diff!r} (rtol {TRACE_RTOL}, atol "
                   f"{TRACE_ATOL}) ({card})", flush=True)
             mesh_runs.append(r)
-    print("[6/7] mesh runs' launches " + json.dumps(
+    print("[7/8] mesh runs' launches " + json.dumps(
         {name: sum(r["launches"][name] for r in mesh_runs)
          for name in REPLACES}), flush=True)
 
     kernels = []
     for name in REPLACES:
-        launches = sum(r["launches"][name] for r in runs + trains + mesh_runs)
+        launches = sum(r["launches"][name]
+                       for r in runs + trains + moe_trains + mesh_runs)
         if launches <= 0:
             raise AssertionError(f"{name} was not launched on a main path")
         t = times[name]
@@ -1425,7 +1664,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"],
             "host_us": t["host_us"], "library_host_us": t["library_host_us"]})
-    print("[7/7] done")
+    print("[8/8] done")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

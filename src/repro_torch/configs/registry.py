@@ -1,10 +1,14 @@
 """Architecture registry: ``get_config(arch_id)`` resolution for the
-architectures the port runs so far (the dense family)."""
+architectures the port runs so far (the dense and MoE families)."""
 from importlib import import_module
 
 _MODULES = {
+    "granite-20b": "repro_torch.configs.granite_20b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
     "nemotron-4-15b": "repro_torch.configs.nemotron_4_15b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
 }
 
 #: every architecture of the reference; the others are not ported yet

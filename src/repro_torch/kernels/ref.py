@@ -62,16 +62,28 @@ def scatter_rows_ref(base, ids, rows):
     return base.index_put_((ids[valid],), rows[valid].to(base.dtype))
 
 
+def index_add_in_order(out, index, src):
+    """``out[index[i]] += src[i]`` for i in order, in place: the same bits
+    on the CPU and on a card, in every run.  `index_add_` adds in that
+    order on the CPU, but on a card its atomics add in no fixed order; an
+    accumulating `index_put_` on a card sorts the index stably and adds
+    each run in order (on the CPU it does not keep the order).  The last
+    bit matters: it decides MoE routing near-ties, which then train two
+    runs apart.  Returns ``out``."""
+    if out.is_cuda:
+        return out.index_put_((index,), src, accumulate=True)
+    return out.index_add_(0, index, src)
+
+
 def segment_sum(order, sorted_ids, slot, grads, n_slots: int, pad_id: int):
     """Duplicate rows pre-summed from a sort (order, sorted_ids, slot):
     returns (slot ids (n_slots,) int32, sums (n_slots, D) fp32).  Unused
-    slots get id ``pad_id`` and a zero row.  `index_add_` adds a slot's
-    rows in index order on the CPU, which is sorted order; on a card its
-    atomics add them in no fixed order."""
+    slots get id ``pad_id`` and a zero row.  Each slot's rows are added
+    one after another in sorted order, from 0 (`index_add_in_order`)."""
     s_g = grads.index_select(0, order.long()).float()
     out_g = torch.zeros((n_slots, grads.shape[1]), dtype=torch.float32,
                         device=grads.device)
-    out_g.index_add_(0, slot.long(), s_g)
+    index_add_in_order(out_g, slot.long(), s_g)
     out_ids = torch.full((n_slots,), pad_id, dtype=torch.int32,
                          device=sorted_ids.device)
     out_ids[slot.long()] = sorted_ids.to(torch.int32)

@@ -11,9 +11,8 @@ ids outside ``[0, R)`` write nothing.
 takes the forward's sort residual and the token gradients and writes, for
 each run of equal sorted ids, the run's sum into ``base[id]``, in one
 launch.  It replaces the duplicate pre-sum (`ops.segment_rows`: an
-`index_select`, a `zeros`, an `index_add_` whose atomics add in no fixed
-order on a card, a `full`, an index-put and a cast) followed by the
-scatter.  Each run is summed in sorted order in fp32, so the result is
+`index_select`, a `zeros`, an in-order add that sorts the slots again
+on a card, a `full`, an index-put and a cast) followed by the scatter.  Each run is summed in sorted order in fp32, so the result is
 the same in every run and equals the plain version on the CPU bit for
 bit.  At the backward's sizes both kernels move a few MB, well under
 10 us of memory time, so what they cost is launches and host work.

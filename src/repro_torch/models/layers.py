@@ -1,14 +1,16 @@
-"""Core transformer layers of the dense family (the twin of
+"""Core transformer layers of the dense and MoE families (the twin of
 `repro/models/layers.py`): ``init_*`` builds a parameter dict from a
 `torch.Generator`, the other functions consume one.  Weights keep the
 reference's layout (``x @ w`` with ``w`` of shape (in, out)), so they
 cross between the packages unchanged.
 
 Plain torch throughout: the reference computes all of this outside any
-Pallas kernel.  Attention is masked softmax attention over the whole
-sequence; the reference's blocked online-softmax `flash_attention` gives
-the same result (at the training shapes it runs one query block and one
-key block).  No KV cache and no decode yet.
+Pallas kernel.  Without a cache, `attention` is masked softmax attention
+over the whole sequence; the reference's blocked online-softmax
+`flash_attention` gives the same result (at the training shapes it runs
+one query block and one key block).  With a KV cache, `attention_block`
+writes the chunk's k/v into it and `decode_attention` attends to the
+cached prefix (the fused prefill and the one-token decode step).
 """
 
 from __future__ import annotations
@@ -137,8 +139,45 @@ def attention(q, k, v, *, causal: bool, window: int = 0):
     return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
-def attention_block(x, p: Params, cfg, positions, *, causal: bool = True):
-    """Full attention sub-layer: projections + rope + attention + output."""
+def decode_attention(q, k_cache, v_cache, cache_len: int, *,
+                     window: int = 0):
+    """Chunked attention against a KV cache.
+
+    q: (B, Sq, H, d); caches: (B, S, KvH, d); ``cache_len``: the valid
+    prefix length (the chunk's k/v already written at ``cache_len - Sq``).
+    Causal within the chunk: query i sits at position ``cache_len - Sq +
+    i`` and attends to the positions at or before its own, within the
+    last ``window`` when ``window`` > 0.  Sq = 1 is the one-token decode
+    step, Sq > 1 the fused prefill.  Scores and softmax in fp32."""
+    B, Sq, H, hd = q.shape
+    S = k_cache.shape[1]
+    k = _repeat_kv(k_cache, H // k_cache.shape[2])
+    v = _repeat_kv(v_cache, H // v_cache.shape[2])
+    pos = torch.arange(S, device=q.device)
+    q_pos = cache_len - Sq + torch.arange(Sq, device=q.device)
+    valid = pos[None, :] <= q_pos[:, None]
+    if window:
+        valid &= pos[None, :] > (q_pos[:, None] - window)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / math.sqrt(hd)
+    p = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).float()
+    return o.to(q.dtype)
+
+
+def attention_block(x, p: Params, cfg, positions, *, cache=None,
+                    cache_len: Optional[int] = None, causal: bool = True):
+    """Full attention sub-layer: projections + rope + attention + output.
+    Returns ``(out, cache)``.
+
+    ``cache``: a dict {k, v} of (B, S_cache, KvH, hd) for decoding, with
+    ``cache_len`` the prefix length including this chunk.  The chunk's
+    k/v are written in place at ``[cache_len - S, cache_len)`` and the
+    queries attend to the cached prefix (`decode_attention`).  A chunk
+    that does not fit the cache raises: the reference's
+    `dynamic_update_slice` clamps the write index instead, so past a
+    sliding-window cache it overwrites the last slots where a rolling
+    cache would be needed."""
     B, S, D = x.shape
     H, KvH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, hd)
@@ -147,8 +186,23 @@ def attention_block(x, p: Params, cfg, positions, *, causal: bool = True):
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    o = attention(q, k, v, causal=causal, window=cfg.sliding_window)
-    return o.reshape(B, S, H * hd) @ p["wo"]
+    if cache is None:
+        o = attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    else:
+        S_cache = cache["k"].shape[1]
+        idx = cache_len - S
+        if idx < 0 or cache_len > S_cache:
+            raise ValueError(
+                f"a {S}-token chunk ending at position {cache_len} does not "
+                f"fit the {S_cache}-position KV cache (a sliding-window "
+                f"cache holds the first {S_cache} positions and does not "
+                f"roll)")
+        cache["k"][:, idx:cache_len] = k
+        cache["v"][:, idx:cache_len] = v
+        o = decode_attention(q, cache["k"][:, :cache_len],
+                             cache["v"][:, :cache_len], cache_len,
+                             window=cfg.sliding_window)
+    return o.reshape(B, S, H * hd) @ p["wo"], cache
 
 # --------------------------------------------------------------------- mlp
 

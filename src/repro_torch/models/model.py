@@ -1,5 +1,6 @@
-"""Model assembly for the dense family (the twin of
-`repro/models/model.py`): a pre-norm GQA transformer as an `nn.Module`.
+"""Model assembly for the dense and MoE families (the twin of
+`repro/models/model.py`): a pre-norm GQA transformer as an `nn.Module`,
+whose FFN is an MLP, or a mixture of experts when ``cfg.n_experts``.
 
 The reference stacks every layer's weights along a leading layer axis and
 scans over it; here each layer is its own module.  `params_from_jax` and
@@ -7,10 +8,13 @@ scans over it; here each layer is its own module.  `params_from_jax` and
 <-> the module's named parameters), so a checkpoint written by either
 package loads in the other (`ckpt/checkpoint.py`).
 
-``forward`` returns ``(logits, aux, None)`` like the reference (``aux`` is
-the MoE load-balance loss, zero for the dense family; ``skip_head=True``
-returns the final hidden state in place of the logits, for
-`losses.vocab_parallel_ce`); ``loss_fn`` is its mean cross-entropy.
+``forward`` returns ``(logits, aux, new_cache)`` like the reference
+(``aux`` is the layers' summed MoE load-balance loss, zero for the dense
+family; ``skip_head=True`` returns the final hidden state in place of
+the logits, for `losses.vocab_parallel_ce`); ``loss_fn`` is its mean
+cross-entropy.  Decoding passes a KV cache from `init_cache`, whose
+``len`` is a host integer (the reference keeps a device scalar): the
+chunk's positions and cache writes then need no device read.
 
 On the vocab-parallel mesh the model's ``embed`` is this rank's block of
 the table (the training loop places it), and a checkpoint's ``embed``
@@ -26,10 +30,15 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.launch.sharding import block_rows
 from repro_torch.pm.embedding import pm_lookup
 from .layers import (_dense_init, attention_block, init_attention, init_mlp,
                      init_norm, mlp_block, norm)
+from .moe import init_moe, moe_block
+
+#: the families whose stack is `DenseLayer`s (the reference's `_dense_stack`)
+FAMILIES = ("dense", "moe")
 
 
 def _params(d: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
@@ -37,7 +46,9 @@ def _params(d: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class DenseLayer(nn.Module):
-    """One pre-norm decoder layer: attention and MLP sub-layers."""
+    """One pre-norm decoder layer: attention and FFN sub-layers; the FFN
+    is ``moe`` (a mixture of experts) when ``cfg.n_experts``, else
+    ``mlp``."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype):
         super().__init__()
@@ -48,27 +59,45 @@ class DenseLayer(nn.Module):
                                            cfg.n_kv_heads, cfg.head_dim,
                                            dtype))
         self.norm2 = _params(init_norm(cfg.d_model, dtype, with_bias, dev))
-        self.mlp = _params(init_mlp(gen, cfg.d_model, cfg.d_ff,
-                                    cfg.activation, dtype))
+        if cfg.n_experts:
+            self.moe = _params(init_moe(gen, cfg.d_model, cfg.n_experts,
+                                        cfg.moe_d_ff, dtype))
+        else:
+            self.mlp = _params(init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                        cfg.activation, dtype))
 
-    def forward(self, h, cfg: ModelConfig, positions):
-        h = h + attention_block(norm(h, self.norm1, cfg.norm, cfg.norm_eps),
-                                self.attn, cfg, positions)
-        return h + mlp_block(norm(h, self.norm2, cfg.norm, cfg.norm_eps),
-                             self.mlp, cfg.activation)
+    def forward(self, h, cfg: ModelConfig, positions, cache=None,
+                cache_len: Optional[int] = None, routes=None):
+        """Returns ``(h, aux)``: ``aux`` the MoE load-balance loss (None
+        without experts).  ``cache``: this layer's {k, v}, written in
+        place."""
+        a, _ = attention_block(
+            norm(h, self.norm1, cfg.norm, cfg.norm_eps), self.attn, cfg,
+            positions, cache=cache, cache_len=cache_len)
+        h = h + a
+        hn = norm(h, self.norm2, cfg.norm, cfg.norm_eps)
+        if cfg.n_experts:
+            m, aux, _ = moe_block(hn, self.moe, n_experts=cfg.n_experts,
+                                  top_k=cfg.top_k,
+                                  capacity_factor=cfg.capacity_factor,
+                                  routes=routes)
+            return h + m, aux
+        return h + mlp_block(hn, self.mlp, cfg.activation), None
 
 
 class DenseLM(nn.Module):
-    """Decoder-only LM of the dense family.  Parameters: ``embed`` (V, D),
-    ``head`` (D, V) unless tied, ``final_norm``, ``layers.<i>.*``."""
+    """Decoder-only LM of the dense and MoE families.  Parameters:
+    ``embed`` (V, D), ``head`` (D, V) unless tied, ``final_norm``,
+    ``layers.<i>.*`` (``layers.<i>.moe.*`` with experts: ``router``
+    (D, E), ``w_gate`` / ``w_up`` (E, D, F), ``w_down`` (E, F, D))."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator,
                  param_dtype=torch.float32):
         super().__init__()
-        if cfg.family != "dense" or cfg.n_experts:
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"{cfg.arch_id}: family {cfg.family!r} is not ported to "
-                f"PyTorch yet (the port runs the dense family)")
+                f"PyTorch yet (the port runs the families {FAMILIES})")
         self.cfg = cfg
         with_bias = cfg.norm == "layernorm"
         # draw order: embed, head, then the layers in order
@@ -82,13 +111,23 @@ class DenseLM(nn.Module):
         self.layers = nn.ModuleList(DenseLayer(cfg, gen, param_dtype)
                                     for _ in range(cfg.n_layers))
 
-    def forward(self, batch: Dict[str, Any], *, pm_miss_capacity: int = 0,
+    def forward(self, batch: Dict[str, Any], cache: Optional[dict] = None,
+                *, pm_miss_capacity: int = 0,
                 pm_strict: bool = False, pm_kernel: bool = False,
                 pm_backend=None, pm_residual=None,
                 embed_rows: Optional[torch.Tensor] = None,
-                skip_head: bool = False):
-        """Returns (logits, aux_loss, None), or with ``skip_head`` (the
-        final hidden state (B, S, D), aux_loss, None).
+                head_last_only: bool = False, skip_head: bool = False,
+                routes: Optional[list] = None):
+        """Returns (logits, aux_loss, new_cache), or with ``skip_head``
+        (the final hidden state (B, S, D), aux_loss, new_cache).
+
+        ``cache``: a decode cache from `init_cache` whose ``len`` already
+        counts this chunk; the chunk sits at positions ``[len - S, len)``,
+        its k/v are written into the cache's tensors in place, and
+        ``new_cache`` is the same dict (None without a cache).
+        ``head_last_only``: the head runs on the last position only.
+        ``routes``: a list to which each MoE layer appends its
+        `moe.Routing`.
 
         batch: ``tokens`` (B, S) int, optional ``positions`` (B, S), and
         the managed embedding's replica cache ``pm_cache_ids`` /
@@ -111,17 +150,55 @@ class DenseLM(nn.Module):
                           batch.get("pm_n_miss"), batch.get("pm_route_cap", 0))
         else:
             h = self.embed[tokens.long()]
+        cache_len = None if cache is None else cache["len"]
         positions = batch.get("positions")
         if positions is None:
-            positions = torch.arange(S, device=tokens.device).expand(B, S)
-        for layer in self.layers:
-            h = layer(h, cfg, positions)
-        h = norm(h, self.final_norm, cfg.norm, cfg.norm_eps)
+            start = 0 if cache is None else cache_len - S
+            positions = torch.arange(start, start + S,
+                                     device=tokens.device).expand(B, S)
         aux = torch.zeros((), dtype=h.dtype, device=h.device)
+        for i, layer in enumerate(self.layers):
+            kv = None if cache is None else \
+                {"k": cache["k"][i], "v": cache["v"][i]}
+            h, aux_l = layer(h, cfg, positions, kv, cache_len, routes)
+            if aux_l is not None:
+                aux = aux + aux_l
+        h = norm(h, self.final_norm, cfg.norm, cfg.norm_eps)
+        if head_last_only:
+            h = h[:, -1:]
         if skip_head:
-            return h, aux, None
+            return h, aux, cache
         head = self.embed.T if cfg.tie_embeddings else self.head
-        return h @ head, aux, None
+        return h @ head, aux, cache
+
+
+def n_attn_apps(cfg: ModelConfig) -> int:
+    """How many times the shared attention block runs (hybrid)."""
+    return -(-cfg.n_layers // cfg.attn_every) if cfg.attn_every else 0
+
+
+def cache_seq_len(cfg: ModelConfig, max_seq: int) -> int:
+    """KV caches are bounded by the sliding window when one exists."""
+    return min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.float32, device=None) -> Dict[str, Any]:
+    """An empty decode cache: ``len`` 0 (a host integer) and ``k`` / ``v``
+    of (L, B, S, KvH, hd), S = `cache_seq_len` — with a sliding window at
+    most the window, and a chunk that would end past S raises
+    (`layers.attention_block`).  ``device`` None: ``cuda``, which raises
+    without a card."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the {cfg.family!r} family's decode state is not "
+            f"ported to PyTorch yet")
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, cache_seq_len(cfg, max_seq),
+             cfg.n_kv_heads, cfg.head_dim)
+    return {"len": 0,
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
 def init_model(cfg: ModelConfig, gen: torch.Generator,

@@ -139,8 +139,9 @@ class EmulatedBackend:
 
     def scatter_row_grads(self, tok, g, vocab_size: int, *,
                           kernel: bool = False, residual=None):
-        """Route all row gradients to the table: a dense scatter-add, or —
-        ``kernel`` — one `segment_scatter_rows` launch that sums each run
+        """Route all row gradients to the table: a dense scatter-add in
+        token order (`ref.index_add_in_order`), or — ``kernel`` — one
+        `segment_scatter_rows` launch that sums each run
         of duplicate token ids in sorted order and writes the sums into a
         zero ``(V + 1, D)`` buffer, whose row V (never written) is sliced
         off.  ``residual``: the forward's `SortResidual` of ``tok`` (the
@@ -150,7 +151,8 @@ class EmulatedBackend:
         base = torch.zeros((V + 1, g.shape[1]), dtype=g.dtype,
                            device=g.device)
         if not kernel:
-            return base.index_add_(0, tok.long().clamp(max=V), g)[:V]
+            return ref.index_add_in_order(base, tok.long().clamp(max=V),
+                                          g)[:V]
         if residual is None:
             residual = ops.sorted_slots(tok, tok.shape[0])
         return ops.segment_scatter_rows(base, residual, g)[:V]

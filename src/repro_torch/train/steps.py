@@ -1,4 +1,5 @@
-"""The training step (the twin of `repro/train/steps.py`).
+"""The training step and the decoding steps (the twin of
+`repro/train/steps.py`).
 
 `make_train_step` returns ``train_step(model, opt_state, batch) -> (loss,
 model, opt_state)``.  The model's parameters and the optimizer state are
@@ -35,6 +36,13 @@ Single-sort step: the step computes ONE `pm_forward.step_residual` from
 the batch tokens, and every index consumer — forward probe/compact,
 backward duplicate pre-sum, the sparse optimizer — reads it.
 
+Decoding (`make_prefill_step`, `make_prefill_decode_step`,
+`make_serve_step`) runs the model forward only, under ``torch.no_grad``,
+on a KV cache from `models.model.init_cache`.  The cache's k/v tensors
+are written in place and its ``len`` is a host integer that each step
+advances; the token embedding is a plain index of the table, as the
+reference's decode takes it with ``jnp.take`` (no Pallas kernel).
+
 fp32 matmuls run in full fp32: TF32 is switched off for matmuls and
 cuDNN when a step is built.
 """
@@ -49,7 +57,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.pm_forward import step_residual
 from repro_torch.models.losses import vocab_parallel_ce
-from repro_torch.models.model import loss_fn
+from repro_torch.models.model import FAMILIES, loss_fn
 from repro_torch.optim.optimizers import (adagrad_init, adagrad_update,
                                           adam_init, adam_update)
 from repro_torch.pm.collectives import resolve
@@ -160,3 +168,66 @@ def make_opt_init(optimizer: str = "adagrad") -> Callable:
     """``init(model) -> state`` over the model's named parameters."""
     init = adagrad_init if optimizer == "adagrad" else adam_init
     return lambda model: init(dict(model.named_parameters()))
+
+
+def make_prefill_step(cfg: ModelConfig, *, last_only: bool = False
+                      ) -> Callable:
+    """Forward-only prefill without a cache: ``prefill_step(model,
+    batch)`` returns the last position's logits (B, V).  ``last_only``
+    runs the head on the last position only, so the (B, S, V) logits are
+    never computed."""
+    full_fp32_matmuls()
+
+    @torch.no_grad()
+    def prefill_step(model, batch):
+        logits, _, _ = model(batch, head_last_only=last_only)
+        return logits[:, -1]
+
+    return prefill_step
+
+
+def make_prefill_decode_step(cfg: ModelConfig) -> Callable:
+    """Fused prefill into a decode cache: ``prefill(model, cache,
+    tokens (B, P), routes=None) -> (last logits (B, V), cache advanced by
+    P)``.  The prompt runs as one chunked forward: k/v for all P
+    positions are written at once and `layers.decode_attention` is causal
+    within the chunk.
+
+    The same result as P one-token serve steps, except where MoE capacity
+    drops: the chunk routes the whole prompt through expert capacity at
+    once (the training-time semantics), where the loop routes one token
+    per sequence at a time.  The prompt must fit the cache.  ``routes``:
+    a list to which each MoE layer appends its `moe.Routing`.  The
+    recurrent families (ssm, hybrid) are not ported yet."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the {cfg.family!r} family's prefill is not "
+            f"ported to PyTorch yet")
+    full_fp32_matmuls()
+
+    @torch.no_grad()
+    def prefill_chunk(model, cache, tokens, routes=None):
+        P = tokens.shape[1]
+        cache = {**cache, "len": cache["len"] + P}
+        logits, _, new_cache = model({"tokens": tokens}, cache,
+                                     head_last_only=True, routes=routes)
+        return logits[:, -1], new_cache
+
+    return prefill_chunk
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    """One decode step: ``serve_step(model, cache, tokens (B, 1),
+    routes=None) -> (logits (B, V), new cache)``, one token per sequence
+    against the cache.  Advances ``cache["len"]`` itself (the new token
+    occupies position len)."""
+    full_fp32_matmuls()
+
+    @torch.no_grad()
+    def serve_step(model, cache, tokens, routes=None):
+        cache = {**cache, "len": cache["len"] + 1}
+        logits, _, new_cache = model({"tokens": tokens}, cache,
+                                     routes=routes)
+        return logits[:, -1], new_cache
+
+    return serve_step

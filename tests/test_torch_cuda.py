@@ -16,7 +16,7 @@ import torch.distributed as dist
 
 from repro_torch.ckpt import checkpoint
 from repro_torch.configs.registry import get_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.adagrad_rows import adagrad_row_update
 from repro_torch.kernels.embed_gather import embed_gather, embed_gather_path
 from repro_torch.kernels.pm_forward import pm_combine
@@ -27,12 +27,15 @@ from repro_torch.kernels.ref import (adagrad_row_update_ref,
 from repro_torch.kernels.scatter_rows import (scatter_rows,
                                               segment_scatter_rows)
 from repro_torch.launch.mesh import init_group
-from repro_torch.models.model import init_model
+from repro_torch.models.model import init_cache, init_model, load_params
+from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.pm.collectives import (EmulatedBackend, make_backend,
                                         route_block)
 from repro_torch.pm.embedding import make_state, pm_lookup
 from repro_torch.train.loop import LoopConfig, checkpoint_tree, train_loop
-from repro_torch.train.steps import make_opt_init
+from repro_torch.train.steps import (full_fp32_matmuls,
+                                     make_prefill_decode_step, make_opt_init,
+                                     make_serve_step)
 from repro_torch.serve import (DriftingZipfStream, ReplayStream, ServeConfig,
                                ServingRuntime)
 
@@ -126,8 +129,8 @@ def test_training_kernels_match_plain(dev, D, dtype):
 def test_train_loop_on_the_card_equals_the_cpu(dev, arch, tmp_path):
     """The same start (a checkpoint with a warm accumulator) trained on
     CUDA through the kernels and on the CPU through the plain versions:
-    the loss traces agree within rtol 1e-4 / atol 1e-5 (matmuls and
-    `index_add_`'s atomics sum in other orders on the card), and the
+    the loss traces agree within rtol 1e-4 / atol 1e-5 (matmuls sum in
+    other orders on the card), and the
     kernels of each arm ran."""
     cfg = get_config(arch, smoke=True)
     model = init_model(cfg, torch.Generator().manual_seed(0))
@@ -153,6 +156,83 @@ def test_train_loop_on_the_card_equals_the_cpu(dev, arch, tmp_path):
     else:                        # fused arm: the sparse row update
         assert counts["adagrad_rows"] >= 24
         assert counts["segment_scatter_rows"] == 0
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_moe_block_on_the_card_equals_the_cpu(dev, capacity_factor):
+    """`moe_block` on CUDA against the same call on CPU copies: the same
+    experts, slots and drops (at 0.5 some assignments drop), the output
+    within rtol 1e-5 of its scale and the aux loss within rtol 1e-5."""
+    full_fp32_matmuls()
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=True)
+    E, K, D = cfg.n_experts, cfg.top_k, cfg.d_model
+    g = torch.Generator().manual_seed(2)
+    p = init_moe(g, D, E, cfg.moe_d_ff, torch.float32)
+    x = torch.randn((4, 16, D), generator=g)
+    kw = dict(n_experts=E, top_k=K, capacity_factor=capacity_factor)
+    r_cpu, r_dev = [], []
+    out_c, aux_c, idx_c = moe_block(x, p, routes=r_cpu, **kw)
+    out_d, aux_d, idx_d = moe_block(
+        x.to(dev), {k: v.to(dev) for k, v in p.items()}, routes=r_dev, **kw)
+    assert torch.equal(idx_d.cpu(), idx_c)
+    assert torch.equal(r_dev[0].slot.cpu(), r_cpu[0].slot)
+    assert torch.equal(r_dev[0].keep.cpu(), r_cpu[0].keep)
+    assert bool(r_cpu[0].keep.all()) == (capacity_factor == 1.25)
+    scale = float(out_c.abs().max())
+    np.testing.assert_allclose(out_d.cpu().numpy(), out_c.numpy(),
+                               rtol=1e-5, atol=1e-5 * scale)
+    np.testing.assert_allclose(float(aux_d), float(aux_c), rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-30b-a3b",
+                                  "mixtral-8x22b"])
+def test_decode_on_the_card_equals_the_cpu(dev, arch):
+    """The fused prefill and four one-token steps on CUDA against the same
+    on the CPU (one set of weights, the CPU run's greedy tokens fed to
+    both): logits within rtol 1e-4 / atol 1e-5 at every step, and no
+    kernel launched (the decode path's embedding is a plain index)."""
+    cfg = get_config(arch, smoke=True)
+    model = init_model(cfg, torch.Generator().manual_seed(0))
+    on_card = init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    load_params(on_card, {k: v.detach() for k, v in
+                          model.named_parameters()})
+    prompt = torch.randint(0, cfg.vocab_size, (2, 6),
+                           generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32)
+    prefill, serve = make_prefill_decode_step(cfg), make_serve_step(cfg)
+    ops.reset_launch_counts()
+    c_cpu = init_cache(cfg, 2, 10, device="cpu")
+    c_dev = init_cache(cfg, 2, 10)
+    assert c_dev["k"].device.type == "cuda"
+    lg_c, c_cpu = prefill(model, c_cpu, prompt)
+    lg_d, c_dev = prefill(on_card, c_dev, prompt.to(dev))
+    for _ in range(4):
+        np.testing.assert_allclose(lg_d.cpu().numpy(), lg_c.numpy(),
+                                   rtol=1e-4, atol=1e-5)
+        tok = lg_c.argmax(dim=-1, keepdim=True).to(torch.int32)
+        lg_c, c_cpu = serve(model, c_cpu, tok)
+        lg_d, c_dev = serve(on_card, c_dev, tok.to(dev))
+    np.testing.assert_allclose(lg_d.cpu().numpy(), lg_c.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    assert c_dev["len"] == c_cpu["len"] == 10
+    assert set(ops.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("D", [1, 8, 576, 6144])
+def test_index_add_in_order_on_the_card_equals_the_cpu(dev, D):
+    """The plain versions' in-order scatter-add (`segment_sum`, the dense
+    arm's table gradient) gives the CPU's sequential sums bit for bit on
+    the card, in every run: a Zipf token stream with long runs of
+    duplicates, fp32."""
+    T = 512
+    rng = np.random.default_rng(D)
+    idx = torch.from_numpy(rng.zipf(1.1, T) % 300).long()
+    src = torch.from_numpy(rng.normal(size=(T, D)).astype(np.float32))
+    want = ref.index_add_in_order(torch.zeros((300, D)), idx, src)
+    for _ in range(2):
+        got = ref.index_add_in_order(torch.zeros((300, D), device=dev),
+                                     idx.to(dev), src.to(dev))
+        assert torch.equal(raw(got.cpu()), raw(want))
 
 
 def unaligned(x: torch.Tensor) -> torch.Tensor:
@@ -237,7 +317,7 @@ def reorder_tolerance(base, residual, grads):
 def test_segment_scatter_rows_matches_plain(dev, D, dtype, one_run):
     """The segmented scatter equals its plain version run on CPU copies
     bit for bit (both add each run in sorted order); against the plain
-    version on the card, whose `index_add_` adds with atomics, it is
+    version on the card (`ref.index_add_in_order`) it is
     within the bound of a reordered fp32 sum.  Row V (the trash row) and
     every row no token names stay zero."""
     V, T = 3000, 512

@@ -11,6 +11,8 @@ about ``lr * sign(g)``, which turns ulp-level differences in a near-zero
 gradient element into a whole update of either sign.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -67,8 +69,21 @@ def leaves(tree):
 def test_registry_names_the_ported_archs():
     assert get_config("smollm-135m").n_layers == 30
     assert get_config("nemotron-4-15b").d_model == 6144
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("llama3-405b")
+    assert get_config("granite-20b").n_kv_heads == 1
+    assert get_config("llama3-405b").d_model == 16384
+    assert get_config("mixtral-8x22b").sliding_window == 4096
+    moe = get_config("qwen3-moe-30b-a3b")
+    assert (moe.family, moe.n_experts, moe.top_k) == ("moe", 128, 8)
+    for arch in ("granite-20b", "llama3-405b", "mixtral-8x22b",
+                 "qwen3-moe-30b-a3b"):
+        for smoke in (False, True):
+            assert dataclasses.asdict(get_config(arch, smoke)) == \
+                dataclasses.asdict(jget_config(arch, smoke)), (arch, smoke)
+    # the four families still left
+    for arch in ("falcon-mamba-7b", "zamba2-1.2b", "whisper-medium",
+                 "qwen2-vl-7b"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

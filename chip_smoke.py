@@ -47,25 +47,36 @@ order it:
    its 32 layers (untied: the fused sparse arm, `adagrad_rows`, and the
    delta refresh, `embed_gather` and `scatter_rows`), smollm-135m at
    its full published config (tied: the lookup's backward,
-   `segment_scatter_rows`) and qwen3-moe-30b-a3b at its published widths
-   with 4 of its 48 layers (the MoE family, untied: the fused arm), 16
-   steps of 8 x 64 tokens each through the
-   kernels (AdaGrad at lr 1e-4 on nemotron and qwen3-moe, where the
-   reference's 0.01 diverges, and 0.01 on smollm),
+   `segment_scatter_rows`), qwen3-moe-30b-a3b at its published widths
+   with 4 of its 48 layers (the MoE family, untied: the fused arm),
+   qwen2-vl-7b at its published widths with 4 of its 28 layers (the vlm
+   family, untied: the fused arm; 16 image rows a sequence, at M-RoPE
+   positions whose t, h and w coordinates differ over the image) and
+   whisper-medium at its full config (the encdec family, 24 + 24 layers
+   over 1500 frames, tied: the dense arm), 16 steps of 8 x 64 tokens
+   each (whisper: 4 x 64) through the kernels (AdaGrad at lr 1e-4, where
+   the reference's 0.01 diverges at these widths, and 0.01 on smollm),
    checks finite losses, no overflow and which kernels ran, then the same
    run through the plain versions, whose loss trace must agree within
    rtol 1e-4 / atol 1e-5; then trains each again, untraced and under
    `torch.profiler`, to show where a step's time goes;
 6. decodes smollm-135m (full config), qwen3-moe-30b-a3b (4 of 48
-   layers) and mixtral-8x22b (2 of 56 layers, its sliding window, at
-   D 6144): a batch of 8 with a 64-token prompt, a fused prefill into a
-   KV cache, then 32 greedy one-token steps; holds the fused prefill's
-   last logits against a token-by-token prefill and the decoded logits
-   against one teacher-forced forward over the consumed tokens, within
-   2e-3 (the MoE models at the positions where, there and before, both
-   paths routed alike and dropped nothing; the count left out is
-   printed), then times prefill and steps;
-7. starts a one-rank NCCL process group on the card and runs the
+   layers), mixtral-8x22b (2 of 56 layers, its sliding window, at
+   D 6144), qwen2-vl-7b (4 of 28 layers, text only) and whisper-medium
+   (full, against the encoder's output over the batch's frames): a batch
+   of 8 with a 64-token prompt, a fused prefill into a KV cache, then 32
+   greedy one-token steps; holds the fused prefill's last logits against
+   a token-by-token prefill and the decoded logits against one
+   teacher-forced forward over the consumed tokens, within 2e-3 (the MoE
+   models at the positions where, there and before, both paths routed
+   alike and dropped nothing; the count left out is printed), then times
+   prefill and steps;
+7. holds the blocked `flash_attention` against `decode_attention` at
+   4096 positions on nemotron-4-15b's heads, then prefills one
+   32768-token prompt through nemotron-4-15b (4 of 32 layers) without a
+   cache (timed, with its peak memory) and holds its last logits within
+   2e-3 of the same prompt prefilled into a KV cache in chunks of 1024;
+8. starts a one-rank NCCL process group on the card and runs the
    vocab-parallel mesh (`repro_torch.pm.collectives.MeshBackend`) at
    world size 1: its routed gather, gradient scatter, AdaGrad update and
    delta refresh at nemotron-4-15b's width against `EmulatedBackend(1)`
@@ -78,7 +89,7 @@ order it:
    `vocab_parallel_ce`) over it, whose loss traces must agree with the
    emulated kernel runs within rtol 1e-4 / atol 1e-5 with no overflow
    step;
-8. prints the kernel table as one JSON line, the card line and, last, the
+9. prints the kernel table as one JSON line, the card line and, last, the
    device line.
 
 Any failure raises, so the script exits non-zero before those last lines.
@@ -128,12 +139,26 @@ N_ROWS = 512                  # training step: 8 x 64 tokens, one slot each
 SMOLLM = (49152, 576)         # smollm-135m (tied) embedding: scatter shape
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 16, 8, 64
 PROFILE_STEPS = 12
+# whisper-medium's step runs about 20k eager calls: 6 profiled steps keep
+# the profiler's processing of the trace short
+PROFILE_STEPS_OF = {"whisper-medium": 6}
 # layers kept of the published depth: the fp32 AdaGrad state (parameters,
 # gradients and accumulators) of every layer does not fit 80 GB —
 # nemotron-4-15b's 32 layers, and qwen3-moe-30b-a3b's 48 (2.46 GB of
 # parameters per layer, about 7.4 GB of state: 354 GB in all)
-TRAIN_LAYERS = {"nemotron-4-15b": 4, "qwen3-moe-30b-a3b": 4}
+TRAIN_LAYERS = {"nemotron-4-15b": 4, "qwen3-moe-30b-a3b": 4,
+                "qwen2-vl-7b": 4}
 MOE_ARCH = "qwen3-moe-30b-a3b"
+# the vlm and encdec families: qwen2-vl-7b at its published widths with 4
+# of its 28 layers (about 2.0 G parameters, 22 GB with the AdaGrad state;
+# 28 layers would need about 90 GB), whisper-medium at its full config
+# (24 + 24 layers, 1500 frames), at a batch of 4 x 64 tokens against 1500
+# frames each: under autograd each encoder layer keeps its attention's
+# (B, 16, 1500, 1500) fp32 probabilities, 0.58 GB a layer at B = 4
+VLM_ARCH, ENCDEC_ARCH = "qwen2-vl-7b", "whisper-medium"
+FAMILY_ARCHS = (VLM_ARCH, ENCDEC_ARCH)
+TRAIN_BATCH = {ENCDEC_ARCH: 4}
+IMG_GRID = 4                  # the image rows of a vlm batch: a 4 x 4 grid
 TRAIN_KNOBS = dict(cache_capacity=1024, refresh_every=2, pipeline_depth=1,
                    n_shards=4, plan_every=8)
 # nemotron at its full width diverges under the reference's default lr
@@ -141,12 +166,20 @@ TRAIN_KNOBS = dict(cache_capacity=1024, refresh_every=2, pipeline_depth=1,
 # against a 1/sqrt(6144) init: loss 13.2 -> 70 in four steps), and a
 # diverging run amplifies rounding into a different trace; 1e-4 trains
 TRAIN_LR = {"nemotron-4-15b": 1e-4, "smollm-135m": 1e-2,
-            MOE_ARCH: 1e-4}
+            MOE_ARCH: 1e-4, VLM_ARCH: 1e-4, ENCDEC_ARCH: 1e-4}
 # decoding: a batch of 8 with a 64-token prompt, a fused prefill, then 32
 # greedy one-token steps; (arch, layers kept) — mixtral-8x22b's 2 of 56
-# layers hold about 21 GB of fp32 weights
+# layers hold about 21 GB of fp32 weights; whisper-medium decodes against
+# the encoder's output over the batch's frames
 DECODE_B, DECODE_PROMPT, DECODE_STEPS = 8, 64, 32
-DECODE = (("smollm-135m", None), (MOE_ARCH, 4), ("mixtral-8x22b", 2))
+DECODE = (("smollm-135m", None), (MOE_ARCH, 4), ("mixtral-8x22b", 2),
+          (VLM_ARCH, 4), (ENCDEC_ARCH, None))
+# the long prefill: nemotron-4-15b (4 of 32 layers, about 19 GB of fp32
+# weights) over one 32768-token prompt (`configs/shapes.py`'s prefill_32k
+# length), held against the same prompt prefilled into a KV cache in
+# chunks; and `flash_attention` against `decode_attention` at 4096
+LONG_ARCH, LONG_LAYERS, LONG_S, LONG_CHUNK = "nemotron-4-15b", 4, 32768, 1024
+FLASH_CHECK_S = 4096
 DECODE_TOL = 2e-3             # the reference's decode-vs-forward tolerance
 MOE_TABLE = (151936, 2048)    # qwen3-moe-30b-a3b's embedding
 TRACE_RTOL, TRACE_ATOL = 1e-4, 1e-5
@@ -940,12 +973,52 @@ def train_config(arch: str):
     return cfg
 
 
+def train_batch(arch: str) -> int:
+    return TRAIN_BATCH.get(arch, TRAIN_B)
+
+
 def loop_config(arch: str, kernel: bool, steps: int = TRAIN_STEPS,
                 collective: str = "emulated"):
     from repro_torch.train.loop import LoopConfig
-    return LoopConfig(steps=steps, batch=TRAIN_B, seq=TRAIN_S,
+    return LoopConfig(steps=steps, batch=train_batch(arch), seq=TRAIN_S,
                       lr=TRAIN_LR[arch], kernel=kernel, log_every=0,
                       seed=SEED, collective=collective, **TRAIN_KNOBS)
+
+
+@contextlib.contextmanager
+def image_positions():
+    """The training loader's M-RoPE batches with distinct t, h and w
+    coordinates, as Qwen2-VL numbers an image: `make_batch` places the
+    image rows at 0 .. n - 1 and gives all three coordinates the token's
+    index; here those rows are an IMG_GRID-wide grid (t 0, h the row, w
+    the column) and the text after the image continues from the grid's
+    largest coordinate plus one.  The loader's random draws are unchanged
+    (the positions are not drawn)."""
+    import torch
+    from repro_torch.data import pipeline
+    make = pipeline.make_batch
+
+    def with_grid(cfg, B, S, rng, device=None):
+        batch = make(cfg, B, S, rng, device)
+        if cfg.mrope and "img_pos" in batch:
+            n = batch["img_pos"].shape[1]
+            if not torch.equal(batch["img_pos"].cpu(),
+                               torch.arange(n).expand(B, n)):
+                raise AssertionError("image rows are not at 0 .. n - 1")
+            i = torch.arange(n)
+            grid = torch.stack([torch.zeros_like(i), i // IMG_GRID,
+                                i % IMG_GRID], dim=-1)
+            text = (torch.arange(S - n) + int(grid.max()) + 1)[:, None]
+            pos = torch.cat([grid, text.expand(S - n, 3)])
+            batch["positions"] = pos.to(torch.int32).expand(B, S, 3) \
+                .contiguous().to(batch["positions"].device)
+        return batch
+
+    pipeline.make_batch = with_grid
+    try:
+        yield
+    finally:
+        pipeline.make_batch = make
 
 
 def free_card() -> None:
@@ -976,8 +1049,10 @@ def train(arch: str, kernel: bool, collective: str = "emulated") -> dict:
     ops.reset_launch_counts()
     bus = loss_clock()
     t0 = time.perf_counter()
-    res = train_loop(cfg, loop_config(arch, kernel, collective=collective),
-                     telemetry=bus)
+    with image_positions():
+        res = train_loop(cfg, loop_config(arch, kernel,
+                                          collective=collective),
+                         telemetry=bus)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -1004,6 +1079,7 @@ def train(arch: str, kernel: bool, collective: str = "emulated") -> dict:
     elif any(launches.values()):
         raise AssertionError(f"{arch}: plain run launched {launches}")
     return {"arch": arch, "n_layers": cfg.n_layers,
+            "batch": [train_batch(arch), TRAIN_S],
             "tied": cfg.tie_embeddings, "kernel": kernel,
             "collective": collective,
             "steps": len(res.losses), "losses": res.losses,
@@ -1038,8 +1114,9 @@ def train_untraced(arch: str, steps: int = PROFILE_STEPS):
     free_card()
     bus = loss_clock()
     t0 = time.perf_counter()
-    res = train_loop(train_config(arch), loop_config(arch, True, steps),
-                     telemetry=bus)
+    with image_positions():
+        res = train_loop(train_config(arch), loop_config(arch, True, steps),
+                         telemetry=bus)
     return res, bus, time.perf_counter() - t0
 
 
@@ -1057,7 +1134,9 @@ def train_profile(arch: str, steps: int = PROFILE_STEPS) -> dict:
     pipeline depth 1 spans the next step's dispatch too), then a run under
     `torch.profiler` with the loop's span tracer on, for the device's
     busy time (the sum of its kernels' times), the device time per kernel
-    name, the host time per loop phase and peak memory."""
+    name, the host time per loop phase and peak memory.  The profiler
+    records device activity only (the host's time comes from the spans),
+    which keeps the processing of a trace of many eager calls short."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -1065,16 +1144,17 @@ def train_profile(arch: str, steps: int = PROFILE_STEPS) -> dict:
     from repro_torch.train.loop import train_loop
     cfg = train_config(arch)
     dev = torch.device("cuda")
+    steps = PROFILE_STEPS_OF.get(arch, steps)
     res, bus, wall = train_untraced(arch, steps)
     ms = step_ms(bus)
     latency_ms = statistics.median(bus.latency("train.step_ms").values())
     free_card()
     torch.cuda.reset_peak_memory_stats(dev)
     tracer = make_tracer(True)
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_loop(cfg, loop_config(arch, True, steps), tracer=tracer)
+        with image_positions():
+            train_loop(cfg, loop_config(arch, True, steps), tracer=tracer)
         torch.cuda.synchronize(dev)
         traced = time.perf_counter() - t0
     by_kernel = {}
@@ -1088,10 +1168,11 @@ def train_profile(arch: str, steps: int = PROFILE_STEPS) -> dict:
     for ev in tracer.events():
         host_ms[ev["name"]] = host_ms.get(ev["name"], 0.0) + \
             (ev["t1_ns"] - ev["t0_ns"]) / 1e6
+    tokens = train_batch(arch) * TRAIN_S
     return {"arch": arch, "n_layers": cfg.n_layers, "steps": steps,
-            "tokens_per_step": TRAIN_B * TRAIN_S,
+            "tokens_per_step": tokens,
             "untraced_wall_s": wall, "step_ms": ms,
-            "tokens_per_s": TRAIN_B * TRAIN_S / (ms / 1e3),
+            "tokens_per_s": tokens / (ms / 1e3),
             "median_step_latency_ms": latency_ms,
             "final_loss": res.losses[-1],
             "traced_wall_s": traced, "device_busy_ms": busy_ms,
@@ -1116,21 +1197,32 @@ def decode_model(arch: str, n_layers, dev):
     return cfg, init_model(cfg, gen)
 
 
-def greedy_decode(model, cfg, prompt, steps: int, routes=None):
-    """A fused prefill of ``prompt`` (B, P) into a fresh cache, then
-    ``steps`` greedy one-token steps (`make_prefill_decode_step`,
-    `make_serve_step`).  Returns the logits (steps + 1, B, V) — the
-    prefill's last position's, then each step's — the (B, P + steps)
-    tokens the model consumed, and the prefill's and the steps' host
-    seconds (each ended by a synchronise).  ``routes``: a list that
-    collects each MoE layer's `Routing`, chunk by chunk."""
-    import torch
+def fresh_cache(cfg, B: int, max_seq: int, dev, enc_out=None):
+    """An empty decode cache on ``dev``; an encoder-decoder model's takes
+    ``enc_out`` (the encoder's output over the batch's frames)."""
     from repro_torch.models.model import init_cache
+    cache = init_cache(cfg, B, max_seq, device=dev)
+    if enc_out is not None:
+        cache["enc_out"] = enc_out
+    return cache
+
+
+def greedy_decode(model, cfg, prompt, steps: int, routes=None,
+                  enc_out=None):
+    """A fused prefill of ``prompt`` (B, P) into a fresh cache (with
+    ``enc_out`` for an encoder-decoder model), then ``steps`` greedy
+    one-token steps (`make_prefill_decode_step`, `make_serve_step`).
+    Returns the logits (steps + 1, B, V) — the prefill's last
+    position's, then each step's — the (B, P + steps) tokens the model
+    consumed, and the prefill's and the steps' host seconds (each ended
+    by a synchronise).  ``routes``: a list that collects each MoE layer's
+    `Routing`, chunk by chunk."""
+    import torch
     from repro_torch.train.steps import (make_prefill_decode_step,
                                          make_serve_step)
     B, P = prompt.shape
     prefill, serve = make_prefill_decode_step(cfg), make_serve_step(cfg)
-    cache = init_cache(cfg, B, P + steps, device=prompt.device)
+    cache = fresh_cache(cfg, B, P + steps, prompt.device, enc_out)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lg, cache = prefill(model, cache, prompt, routes=routes)
@@ -1177,23 +1269,24 @@ def comparable(a, b):
     return ok.int().cumprod(dim=1).bool()
 
 
-def decode_checks(model, cfg, prompt) -> dict:
+def decode_checks(model, cfg, prompt, frames=None, enc_out=None) -> dict:
     """The decode path against two others on the same weights, within
     DECODE_TOL: the fused prefill's last logits against a token-by-token
     prefill (P one-token steps), and the prefill's and the 32 steps'
     logits against one teacher-forced forward over the consumed tokens.
     With experts, a prompt chunk routes through expert capacity at once,
     unlike the token loop, so each comparison keeps the positions
-    `comparable` finds and reports how many it left out."""
+    `comparable` finds and reports how many it left out.  An
+    encoder-decoder model's caches take ``enc_out``, and its
+    teacher-forced forward runs the encoder over ``frames`` itself."""
     import torch
-    from repro_torch.models.model import init_cache
     from repro_torch.train.steps import make_serve_step
     B, P = prompt.shape
     L = cfg.n_layers
     moe = bool(cfg.n_experts)
     r_dec = [] if moe else None
     logits, toks, _, _ = greedy_decode(model, cfg, prompt, DECODE_STEPS,
-                                       r_dec)
+                                       r_dec, enc_out)
     if tuple(logits.shape) != (DECODE_STEPS + 1, B, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{cfg.arch_id}: decode logits "
@@ -1201,13 +1294,16 @@ def decode_checks(model, cfg, prompt) -> dict:
     # token-by-token prefill
     r_loop = [] if moe else None
     serve = make_serve_step(cfg)
-    cache = init_cache(cfg, B, P, device=prompt.device)
+    cache = fresh_cache(cfg, B, P, prompt.device, enc_out)
     for t in range(P):
         lg_loop, cache = serve(model, cache, prompt[:, t:t + 1], r_loop)
     # teacher forcing over the consumed tokens
     r_tf = [] if moe else None
+    forced = {"tokens": toks}
+    if frames is not None:
+        forced["frames"] = frames
     with torch.no_grad():
-        tf, _, _ = model({"tokens": toks}, routes=r_tf)
+        tf, _, _ = model(forced, routes=r_tf)
     tf = tf[:, P - 1:].transpose(0, 1)               # (steps + 1, B, V)
     if moe:
         dec = route_table(r_dec, L, B)         # the prefill, then the steps
@@ -1247,11 +1343,14 @@ def decode_checks(model, cfg, prompt) -> dict:
 
 def decode(arch: str, n_layers, dev) -> dict:
     """Decoding of one model (seeded random weights on the card, a seeded
-    random prompt of DECODE_B x DECODE_PROMPT tokens): `decode_checks`,
-    then a timed run of the same prefill and DECODE_STEPS greedy steps.
-    The decode path launches none of the kernels (its embedding is a
-    plain index, as the reference's ``jnp.take``)."""
+    random prompt of DECODE_B x DECODE_PROMPT tokens; an encoder-decoder
+    model's frames drawn as the training loader draws them, and its
+    encoder run once over them first): `decode_checks`, then a timed run
+    of the same prefill and DECODE_STEPS greedy steps.  The decode path
+    launches none of the kernels (its embedding is a plain index, as the
+    reference's ``jnp.take``)."""
     import torch
+    from repro_torch.data.batches import make_batch
     from repro_torch.kernels import ops
     free_card()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1261,9 +1360,20 @@ def decode(arch: str, n_layers, dev) -> dict:
         0, cfg.vocab_size, size=(DECODE_B, DECODE_PROMPT)).astype(np.int32)
     ).to(dev)
     ops.reset_launch_counts()
-    checks = decode_checks(model, cfg, prompt)
+    frames = enc_out = None
+    encode_ms = None
+    if cfg.family == "encdec":
+        frames = make_batch(cfg, DECODE_B, DECODE_PROMPT, rng,
+                            dev)["frames"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            enc_out = model.encode(frames)
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+    checks = decode_checks(model, cfg, prompt, frames, enc_out)
     _, _, prefill_s, steps_s = greedy_decode(model, cfg, prompt,
-                                             DECODE_STEPS)
+                                             DECODE_STEPS, enc_out=enc_out)
     launches = ops.launch_counts()
     if any(launches.values()):
         raise AssertionError(f"{arch}: decoding launched {launches}")
@@ -1271,7 +1381,7 @@ def decode(arch: str, n_layers, dev) -> dict:
            "batch": DECODE_B, "prompt": DECODE_PROMPT,
            "steps": DECODE_STEPS, "cache_positions":
                DECODE_PROMPT + DECODE_STEPS,
-           "prefill_ms": prefill_s * 1e3,
+           "encode_ms": encode_ms, "prefill_ms": prefill_s * 1e3,
            "decode_ms_per_token": steps_s * 1e3 / DECODE_STEPS,
            "decode_tokens_per_s": DECODE_B * DECODE_STEPS / steps_s,
            "prefill_tokens_per_s": DECODE_B * DECODE_PROMPT / prefill_s,
@@ -1280,6 +1390,92 @@ def decode(arch: str, n_layers, dev) -> dict:
     del model
     free_card()
     return out
+
+
+def check_flash_attention(dev, S: int = FLASH_CHECK_S,
+                          seed: int = SEED) -> dict:
+    """`flash_attention` (causal, the default 512 x 1024 blocks) against
+    `decode_attention` with ``cache_len = S`` (plain softmax over the
+    whole prefix) on random q, k, v of nemotron-4-15b's heads (48 query
+    heads, 8 KV heads of 128), within TRACE_RTOL / TRACE_ATOL."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.layers import decode_attention, flash_attention
+    cfg = get_config(LONG_ARCH)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 9)
+    q = torch.randn((1, S, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=dev)
+    k, v = (torch.randn((1, S, cfg.n_kv_heads, cfg.head_dim), generator=g,
+                        device=dev) for _ in range(2))
+    got = flash_attention(q, k, v, causal=True)
+    want = decode_attention(q, k, v, S)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if not torch.allclose(got, want, rtol=TRACE_RTOL, atol=TRACE_ATOL):
+        raise AssertionError(f"flash_attention != decode_attention at S = "
+                             f"{S}: max abs diff {err}")
+    return {"S": S, "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+            "max_abs_diff": err}
+
+
+def long_prefill(dev) -> dict:
+    """The 32k prefill: LONG_ARCH cut to LONG_LAYERS layers (seeded random
+    weights) over one seeded random LONG_S-token prompt through
+    `make_prefill_step(last_only=True)` (blocked attention, no cache),
+    timed (host clock, synchronised) with its peak memory; then the same
+    prompt prefilled into a KV cache in chunks of LONG_CHUNK
+    (`make_prefill_decode_step`, `decode_attention` over the cached
+    prefix), whose last logits must agree within DECODE_TOL."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train.steps import (make_prefill_decode_step,
+                                         make_prefill_step)
+    free_card()
+    cfg, model = decode_model(LONG_ARCH, LONG_LAYERS, dev)
+    weights_gb = torch.cuda.memory_allocated(dev) / 1e9
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, LONG_S)).astype(np.int32)).to(dev)
+    ops.reset_launch_counts()
+    prefill = make_prefill_step(cfg, last_only=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    got = prefill(model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    chunk = make_prefill_decode_step(cfg)
+    cache = fresh_cache(cfg, 1, LONG_S, dev)
+    t0 = time.perf_counter()
+    for c0 in range(0, LONG_S, LONG_CHUNK):
+        want, cache = chunk(model, cache, prompt[:, c0:c0 + LONG_CHUNK])
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    chunked_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"the prefill launched {ops.launch_counts()}")
+    if tuple(got.shape) != (1, cfg.vocab_size) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"32k prefill logits {tuple(got.shape)} not "
+                             f"finite or misshapen")
+    diff = (got - want).abs()
+    if bool((diff > DECODE_TOL + DECODE_TOL * want.abs()).any()):
+        raise AssertionError(f"32k prefill vs chunked cache prefill: max "
+                             f"abs diff {float(diff.max())}")
+    del model, cache
+    free_card()
+    return {"arch": LONG_ARCH, "n_layers": cfg.n_layers, "batch": 1,
+            "tokens": LONG_S, "weights_gb": weights_gb,
+            "prefill_ms": prefill_s * 1e3,
+            "prefill_tokens_per_s": LONG_S / prefill_s,
+            "peak_alloc_gb": peak,
+            "chunked": {"chunk": LONG_CHUNK, "ms": chunked_s * 1e3,
+                        "peak_alloc_gb": chunked_peak},
+            "last_logits_max_abs_diff": float(diff.max())}
 
 
 @contextlib.contextmanager
@@ -1550,48 +1746,61 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
-    print(f"[1/8] device: {card} ({torch.cuda.get_device_name(0)}, "
+    start = last = time.perf_counter()
+    phase_s = {}
+
+    def phase(name: str) -> None:
+        """Notes the seconds since the last phase ended."""
+        nonlocal last
+        now = time.perf_counter()
+        phase_s[name] = now - last
+        last = now
+
+    print(f"[1/9] device: {card} ({torch.cuda.get_device_name(0)}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
     t0 = time.perf_counter()
     lib = build.build()
     build.library()
-    print(f"[2/8] built {lib.relative_to(Path(__file__).resolve().parent)} "
+    print(f"[2/9] built {lib.relative_to(Path(__file__).resolve().parent)} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    phase("build")
 
     table = make_table(dev)
     err, paths = check_kernels(table)
     err.update(check_training_kernels(table))
     seg = check_segment_scatter(dev)
     err["segment_scatter_rows"] = seg["max_abs_err"]
-    print("[3/8] embed_gather paths " + json.dumps(paths), flush=True)
-    print("[3/8] segment_scatter_rows " + json.dumps(seg), flush=True)
+    print("[3/9] embed_gather paths " + json.dumps(paths), flush=True)
+    print("[3/9] segment_scatter_rows " + json.dumps(seg), flush=True)
     times = time_kernels(table)
     times.update(time_training_kernels(table))
     times["segment_scatter_rows"] = time_segment_scatter(dev)
-    print("[3/8] kernels == plain versions, bitwise: "
+    print("[3/9] kernels == plain versions, bitwise: "
           + json.dumps({k: {"max_abs_err": err[k], **times[k]}
                         for k in err}), flush=True)
-    print(f"[3/8] kernels at {MOE_ARCH}'s shapes " + json.dumps(
+    print(f"[3/9] kernels at {MOE_ARCH}'s shapes " + json.dumps(
         dict(time_at_moe_shapes(dev), card=card)), flush=True)
+    phase("kernels")
 
     runs = [serve(table),
             serve(table, cache_capacity=512, pipeline_depth=2)]
     for r in runs:
-        print("[4/8] serve " + json.dumps(r), flush=True)
+        print("[4/9] serve " + json.dumps(r), flush=True)
     sizes = sorted(set(serve_sizes(runs)) | {N_IDS})
-    print("[4/8] embed_gather at the serving runs' sizes and n=4096, both "
+    print("[4/9] embed_gather at the serving runs' sizes and n=4096, both "
           "paths " + json.dumps(gather_at_sizes(table, sizes)), flush=True)
     for knobs in ({}, {"cache_capacity": 512, "pipeline_depth": 2}):
-        print("[4/8] profile " + json.dumps(profile(table, **knobs)),
+        print("[4/9] profile " + json.dumps(profile(table, **knobs)),
               flush=True)
     del table
     free_card()
+    phase("serve")
 
-    print("[5/8] lookup backward launches " + json.dumps(
+    print("[5/9] lookup backward launches " + json.dumps(
         backward_launches(dev)), flush=True)
-    trains, moe_trains = [], []
-    for arch in ("nemotron-4-15b", "smollm-135m", MOE_ARCH):
+    trains, other_trains = [], []
+    for arch in ("nemotron-4-15b", "smollm-135m", MOE_ARCH) + FAMILY_ARCHS:
         ker, plain = train(arch, True), train(arch, False)
         np.testing.assert_allclose(ker["losses"], plain["losses"],
                                    rtol=TRACE_RTOL, atol=TRACE_ATOL,
@@ -1599,36 +1808,46 @@ def main() -> int:
         diff = float(np.max(np.abs(np.subtract(ker["losses"],
                                                plain["losses"]))))
         for r in (ker, plain):
-            print("[5/8] train " + json.dumps(r), flush=True)
-        print(f"[5/8] {arch}: kernel vs plain loss trace, max abs diff "
+            print("[5/9] train " + json.dumps(r), flush=True)
+        print(f"[5/9] {arch}: kernel vs plain loss trace, max abs diff "
               f"{diff!r} (rtol {TRACE_RTOL}, atol {TRACE_ATOL})", flush=True)
-        (moe_trains if arch == MOE_ARCH else trains).append(ker)
-    for arch in ("nemotron-4-15b", "smollm-135m", MOE_ARCH):
-        print("[5/8] train profile " + json.dumps(
+        (trains if arch in ("nemotron-4-15b", "smollm-135m")
+         else other_trains).append(ker)
+        phase(f"train {arch}")
+    for arch in ("nemotron-4-15b", "smollm-135m", MOE_ARCH) + FAMILY_ARCHS:
+        print("[5/9] train profile " + json.dumps(
             dict(train_profile(arch), card=card)), flush=True)
+        phase(f"train profile {arch}")
 
     for arch, layers in DECODE:
-        print("[6/8] decode " + json.dumps(
+        print("[6/9] decode " + json.dumps(
             dict(decode(arch, layers, dev), card=card)), flush=True)
+        phase(f"decode {arch}")
+
+    print("[7/9] flash_attention == decode_attention " + json.dumps(
+        dict(check_flash_attention(dev), card=card)), flush=True)
+    print("[7/9] long prefill " + json.dumps(
+        dict(long_prefill(dev), card=card)), flush=True)
+    phase("long prefill")
 
     import torch.distributed as dist
     with nccl_group(dev) as be:
-        print(f"[7/8] process group: backend {dist.get_backend()}, world "
+        print(f"[8/9] process group: backend {dist.get_backend()}, world "
               f"size {dist.get_world_size()}, {type(be).__name__} of "
               f"{be.n_shards} shard on {be.device} ({card})", flush=True)
         table = make_table(dev)
         mesh_err = check_mesh_backend(be, table)
-        print("[7/8] mesh backend == emulated backend, bitwise: "
+        print("[8/9] mesh backend == emulated backend, bitwise: "
               + json.dumps(dict(mesh_err, card=card)), flush=True)
         serve_runs, serve_ms, serve_prof = serve_mesh(table)
         for r in serve_runs:
-            print("[7/8] mesh serve " + json.dumps(dict(r, card=card)),
+            print("[8/9] mesh serve " + json.dumps(dict(r, card=card)),
                   flush=True)
-        print("[7/8] mesh serve ms per round in turns (emulated, mesh, mesh,"
+        print("[8/9] mesh serve ms per round in turns (emulated, mesh, mesh,"
               " emulated; 32 rounds, one shard) "
               + json.dumps(dict(serve_ms, card=card)), flush=True)
         for name, prof in serve_prof.items():
-            print(f"[7/8] profile, {name}, one shard " + json.dumps(
+            print(f"[8/9] profile, {name}, one shard " + json.dumps(
                 dict(prof, card=card)), flush=True)
         del table
         free_card()
@@ -1640,20 +1859,21 @@ def main() -> int:
                 err_msg=f"{r['arch']}: mesh vs emulated trace")
             diff = float(np.max(np.abs(np.subtract(r["losses"],
                                                    emu["losses"]))))
-            print("[7/8] mesh train " + json.dumps(dict(r, card=card)),
+            print("[8/9] mesh train " + json.dumps(dict(r, card=card)),
                   flush=True)
-            print(f"[7/8] {r['arch']}: mesh vs emulated kernel loss trace, "
+            print(f"[8/9] {r['arch']}: mesh vs emulated kernel loss trace, "
                   f"max abs diff {diff!r} (rtol {TRACE_RTOL}, atol "
                   f"{TRACE_ATOL}) ({card})", flush=True)
             mesh_runs.append(r)
-    print("[7/8] mesh runs' launches " + json.dumps(
+    print("[8/9] mesh runs' launches " + json.dumps(
         {name: sum(r["launches"][name] for r in mesh_runs)
          for name in REPLACES}), flush=True)
+    phase("mesh")
 
     kernels = []
     for name in REPLACES:
-        launches = sum(r["launches"][name]
-                       for r in runs + trains + moe_trains + mesh_runs)
+        launches = sum(r["launches"][name] for r in
+                       runs + trains + other_trains + mesh_runs)
         if launches <= 0:
             raise AssertionError(f"{name} was not launched on a main path")
         t = times[name]
@@ -1664,7 +1884,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"],
             "host_us": t["host_us"], "library_host_us": t["library_host_us"]})
-    print("[8/8] done")
+    print(f"[9/9] done in {time.perf_counter() - start:.1f} s; seconds per "
+          f"phase " + json.dumps(phase_s))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

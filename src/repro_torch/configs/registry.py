@@ -1,10 +1,13 @@
 """Architecture registry: ``get_config(arch_id)`` resolution for the
-architectures the port runs so far (the dense and MoE families)."""
+architectures the port runs so far (the dense, MoE, vlm and encdec
+families)."""
 from importlib import import_module
 
 _MODULES = {
+    "whisper-medium": "repro_torch.configs.whisper_medium",
     "granite-20b": "repro_torch.configs.granite_20b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "llama3-405b": "repro_torch.configs.llama3_405b",
     "nemotron-4-15b": "repro_torch.configs.nemotron_4_15b",

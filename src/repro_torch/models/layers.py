@@ -1,22 +1,23 @@
-"""Core transformer layers of the dense and MoE families (the twin of
-`repro/models/layers.py`): ``init_*`` builds a parameter dict from a
-`torch.Generator`, the other functions consume one.  Weights keep the
-reference's layout (``x @ w`` with ``w`` of shape (in, out)), so they
-cross between the packages unchanged.
+"""Core transformer layers (the twin of `repro/models/layers.py`):
+``init_*`` builds a parameter dict from a `torch.Generator`, the other
+functions consume one.  Weights keep the reference's layout (``x @ w``
+with ``w`` of shape (in, out)), so they cross between the packages
+unchanged.
 
 Plain torch throughout: the reference computes all of this outside any
-Pallas kernel.  Without a cache, `attention` is masked softmax attention
-over the whole sequence; the reference's blocked online-softmax
-`flash_attention` gives the same result (at the training shapes it runs
-one query block and one key block).  With a KV cache, `attention_block`
-writes the chunk's k/v into it and `decode_attention` attends to the
-cached prefix (the fused prefill and the one-token decode step).
+Pallas kernel.  Without a cache, attention is `flash_attention`: the
+reference's blocked online softmax (q blocks of 512 against kv blocks of
+1024), so a long prefill holds one tile of scores at a time, never the
+(S x S) matrix.  With a KV cache, `attention_block` writes the chunk's
+k/v into it and `decode_attention` attends to the cached prefix (the
+fused prefill and the one-token decode step).  Cross-attention (the
+encoder-decoder family) takes the encoder's k/v through ``cross_kv``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -84,14 +85,32 @@ def norm(x, p: Params, kind: str, eps: float = 1e-5):
 # --------------------------------------------------------------------- rope
 
 
-def rope_angles(positions, head_dim: int, theta: float):
-    """positions: (B, S) ints.  Returns (cos, sin) of shape
-    (B, S, head_dim // 2), float32."""
+def rope_angles(positions, head_dim: int, theta: float,
+                mrope_sections: Optional[Tuple[int, int, int]] = None):
+    """positions: (B, S) ints, or (B, S, 3) for M-RoPE (t/h/w
+    coordinates).  Returns (cos, sin) of shape (B, S, head_dim // 2),
+    float32.
+
+    M-RoPE (Qwen2-VL): the frequency bands are split into three sections
+    of ``mrope_sections`` bands, driven by the temporal, height and width
+    coordinate respectively."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32,
                         device=positions.device) / half
     inv_freq = 1.0 / (theta ** exps)
-    ang = positions.float()[..., None] * inv_freq
+    if mrope_sections is None:
+        pos = positions.float()[..., None]                    # (B,S,1)
+    else:
+        if sum(mrope_sections) != half:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not "
+                             f"cover the {half} frequency bands")
+        # band i's section, computed on the device (a host list moved
+        # there would wait for the device's queue)
+        band = torch.arange(half, device=positions.device)
+        t, h, _ = mrope_sections
+        sec_id = (band >= t).long() + (band >= t + h).long()
+        pos = positions.float()[..., sec_id]                  # (B,S,half)
+    ang = pos * inv_freq
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -114,29 +133,87 @@ def _repeat_kv(k, n_rep: int):
         .reshape(b, s, h * n_rep, d)
 
 
-def attention(q, k, v, *, causal: bool, window: int = 0):
-    """Masked softmax attention.  q: (B, S, H, d); k, v: (B, S, KvH, d)
-    (GQA: H % KvH == 0).  ``window`` > 0 restricts each query to the last
-    ``window`` positions.  Scores and sums in fp32; fully masked rows give
-    zeros, as the reference's guarded softmax does."""
-    B, S, H, hd = q.shape
-    k = _repeat_kv(k, H // k.shape[2])
-    v = _repeat_kv(v, H // v.shape[2])
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        * (1.0 / math.sqrt(hd))
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[:, None] >= pos[None, :]
-    if window:
-        mask &= (pos[:, None] - pos[None, :]) < window
-    s = s.masked_fill(~mask, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
+def _block_attn(q, k, v, mask, scale):
+    """One (q-block, kv-block) tile, heads leading: q (B, H, Q, d), k, v
+    (B, H, K, d), ``mask`` (Q, K) bool or None (every pair visible).
+    Returns the un-normalized (o (B, H, Q, d), m (B, H, Q), l (B, H, Q))
+    in fp32, ``m`` floored at 0 where a row is fully masked.
+
+    ``m`` is taken without gradient: the attention's value does not
+    depend on it (it cancels between ``o`` and ``l``), so the gradient is
+    the same function's, and autograd keeps the tile's probabilities but
+    not its raw scores."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        s = s.masked_fill(~mask, float("-inf"))
+    m = s.detach().amax(dim=-1)
     m = torch.where(torch.isfinite(m), m, 0.0)
-    p = torch.exp(s - m).masked_fill(~mask, 0.0)
-    l = p.sum(dim=-1).clamp(min=1e-20)                        # (B,H,Q)
-    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).float()
-    return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
+    p = torch.exp(s - m[..., None])          # masked scores give exp(-inf)
+    o = torch.matmul(p.to(v.dtype), v).float()
+    return o, m, p.sum(dim=-1)
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int = 0,
+                    q_offset: int = 0, q_block: int = 512,
+                    kv_block: int = 1024):
+    """Blocked attention with an online softmax, the reference's
+    algorithm.
+
+    q: (B, Sq, H, d); k, v: (B, Skv, KvH, d) (GQA: H % KvH == 0; Sq may
+    differ from Skv, as in cross-attention).  ``q_offset``: the absolute
+    position of q[0] (keys sit at 0 .. Skv - 1).  ``window`` > 0
+    restricts each query to the last ``window`` positions.  Scores in
+    fp32; the running max starts at 0 and is floored there (the
+    reference's ``m_safe``), so a fully masked row comes out as zeros.
+
+    Two departures, both exact: the last q and kv blocks are sliced
+    ragged instead of padded, and a tile that masks every pair (wholly
+    above the causal diagonal, or wholly out of the window's reach) is
+    skipped: with m >= 0 it would give m_j = l_j = o_j = 0 and add
+    nothing.  A tile that masks no pair builds no mask."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qh = q.transpose(1, 2)                                    # (B,H,Sq,d)
+    kh = _repeat_kv(k, H // k.shape[2]).transpose(1, 2)
+    vh = _repeat_kv(v, H // v.shape[2]).transpose(1, 2)
+    dev = q.device
+    outs = []
+    for q0 in range(0, Sq, q_block):
+        q1 = min(q0 + q_block, Sq)
+        first, last = q_offset + q0, q_offset + q1 - 1        # positions
+        qp = torch.arange(first, last + 1, device=dev)[:, None]
+        o = torch.zeros((B, H, q1 - q0, hd), dtype=torch.float32,
+                        device=dev)
+        m = torch.zeros((B, H, q1 - q0), dtype=torch.float32, device=dev)
+        l = torch.zeros_like(m)
+        for k0 in range(0, Skv, kv_block):
+            k1 = min(k0 + kv_block, Skv)
+            if causal and k0 > last:
+                break                        # this and every later tile
+            if window and first - (k1 - 1) >= window:
+                continue                     # wholly out of reach
+            mask = None
+            if (causal and k1 - 1 > first) or \
+                    (window and last - k0 >= window):
+                kp = torch.arange(k0, k1, device=dev)[None, :]
+                mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
+                                  device=dev)
+                if causal:
+                    mask &= qp >= kp
+                if window:
+                    mask &= (qp - kp) < window
+            o_j, m_j, l_j = _block_attn(qh[:, :, q0:q1], kh[:, :, k0:k1],
+                                        vh[:, :, k0:k1], mask, scale)
+            m_new = torch.maximum(m, m_j)
+            a = torch.exp(m - m_new)
+            b = torch.exp(m_j - m_new)
+            o = o * a[..., None] + o_j * b[..., None]
+            l = l * a + l_j * b
+            m = m_new
+        outs.append(o / l.clamp(min=1e-20)[..., None])
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len: int, *,
@@ -166,10 +243,14 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *,
 
 
 def attention_block(x, p: Params, cfg, positions, *, cache=None,
-                    cache_len: Optional[int] = None, causal: bool = True):
+                    cache_len: Optional[int] = None, cross_kv=None,
+                    causal: bool = True):
     """Full attention sub-layer: projections + rope + attention + output.
     Returns ``(out, cache)``.
 
+    ``positions``: (B, S), or (B, S, 3) with ``cfg.mrope`` (M-RoPE).
+    ``cross_kv``: the encoder side's (k, v), each (B, F, H, hd), for
+    cross-attention: no rope, no cache, no mask.
     ``cache``: a dict {k, v} of (B, S_cache, KvH, hd) for decoding, with
     ``cache_len`` the prefix length including this chunk.  The chunk's
     k/v are written in place at ``[cache_len - S, cache_len)`` and the
@@ -181,13 +262,18 @@ def attention_block(x, p: Params, cfg, positions, *, cache=None,
     B, S, D = x.shape
     H, KvH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, hd)
+    if cross_kv is not None:
+        o = flash_attention(q, *cross_kv, causal=False)
+        return o.reshape(B, S, H * hd) @ p["wo"], cache
     k = (x @ p["wk"]).reshape(B, S, KvH, hd)
     v = (x @ p["wv"]).reshape(B, S, KvH, hd)
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta,
+                           cfg.mrope_sections if cfg.mrope else None)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is None:
-        o = attention(q, k, v, causal=causal, window=cfg.sliding_window)
+        o = flash_attention(q, k, v, causal=causal,
+                            window=cfg.sliding_window)
     else:
         S_cache = cache["k"].shape[1]
         idx = cache_len - S

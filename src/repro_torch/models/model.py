@@ -1,20 +1,32 @@
-"""Model assembly for the dense and MoE families (the twin of
-`repro/models/model.py`): a pre-norm GQA transformer as an `nn.Module`,
-whose FFN is an MLP, or a mixture of experts when ``cfg.n_experts``.
+"""Model assembly for the attention families (the twin of
+`repro/models/model.py`): a pre-norm GQA transformer as an `nn.Module`.
+
+* dense / moe: decoder layers whose FFN is an MLP, or a mixture of
+  experts when ``cfg.n_experts``;
+* vlm (Qwen2-VL): the dense stack, with precomputed image-patch
+  embeddings (the ViT is a stub) written over the token rows at
+  ``img_pos``, and M-RoPE positions (B, S, 3);
+* encdec (Whisper): an encoder of non-causal self-attention layers over
+  precomputed frame embeddings (the audio frontend is a stub), and
+  decoder layers of causal self-attention, cross-attention to the
+  encoder's output and an MLP.
 
 The reference stacks every layer's weights along a leading layer axis and
 scans over it; here each layer is its own module.  `params_from_jax` and
 `params_to_jax` carry weights between the two layouts (JAX parameter tree
-<-> the module's named parameters), so a checkpoint written by either
-package loads in the other (`ckpt/checkpoint.py`).
+<-> the module's named parameters; ``layers`` and ``enc_layers`` alike),
+so a checkpoint written by either package loads in the other
+(`ckpt/checkpoint.py`).
 
 ``forward`` returns ``(logits, aux, new_cache)`` like the reference
-(``aux`` is the layers' summed MoE load-balance loss, zero for the dense
-family; ``skip_head=True`` returns the final hidden state in place of
+(``aux`` is the layers' summed MoE load-balance loss, zero without
+experts; ``skip_head=True`` returns the final hidden state in place of
 the logits, for `losses.vocab_parallel_ce`); ``loss_fn`` is its mean
 cross-entropy.  Decoding passes a KV cache from `init_cache`, whose
 ``len`` is a host integer (the reference keeps a device scalar): the
-chunk's positions and cache writes then need no device read.
+chunk's positions and cache writes then need no device read.  An
+encoder-decoder cache also holds ``enc_out``, which the caller fills
+with `DenseLM.encode` before the prefill.
 
 On the vocab-parallel mesh the model's ``embed`` is this rank's block of
 the table (the training loop places it), and a checkpoint's ``embed``
@@ -23,6 +35,7 @@ leaves load as that block (`params_from_jax` with ``shard``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -37,8 +50,9 @@ from .layers import (_dense_init, attention_block, init_attention, init_mlp,
                      init_norm, mlp_block, norm)
 from .moe import init_moe, moe_block
 
-#: the families whose stack is `DenseLayer`s (the reference's `_dense_stack`)
-FAMILIES = ("dense", "moe")
+#: the families the port runs: `DenseLayer` stacks (the reference's
+#: `_dense_stack`) and the encoder-decoder's `EncDecLayer` stacks
+FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
 def _params(d: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
@@ -85,11 +99,70 @@ class DenseLayer(nn.Module):
         return h + mlp_block(hn, self.mlp, cfg.activation), None
 
 
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The config an encoder layer's attention runs under: the encoder's
+    heads (``d_model // n_heads`` wide, no GQA) and no window, as the
+    reference's `_encoder` replaces them."""
+    h = cfg.encoder.n_heads
+    return dataclasses.replace(cfg, n_heads=h, n_kv_heads=h,
+                               head_dim=cfg.d_model // h, sliding_window=0)
+
+
+class EncDecLayer(nn.Module):
+    """One layer of the encoder-decoder family, norms with bias as the
+    reference's: self-attention (``norm1``, ``attn``), in the decoder
+    then cross-attention to the encoder's output (``norm_x``,
+    ``cross``), then the MLP (``norm2``, ``mlp``).  An encoder layer is
+    built with `encoder_config`."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype,
+                 cross: bool):
+        super().__init__()
+        D, dev = cfg.d_model, gen.device
+        self.norm1 = _params(init_norm(D, dtype, True, dev))
+        self.attn = _params(init_attention(gen, D, cfg.n_heads,
+                                           cfg.n_kv_heads, cfg.head_dim,
+                                           dtype))
+        if cross:
+            self.norm_x = _params(init_norm(D, dtype, True, dev))
+            self.cross = _params(init_attention(gen, D, cfg.n_heads,
+                                                cfg.n_heads, cfg.head_dim,
+                                                dtype))
+        self.norm2 = _params(init_norm(D, dtype, True, dev))
+        self.mlp = _params(init_mlp(gen, D, cfg.d_ff, cfg.activation, dtype))
+
+    def forward(self, h, cfg: ModelConfig, positions, enc_out=None,
+                cache=None, cache_len: Optional[int] = None):
+        """``enc_out`` (B, F, D): a decoder layer's encoder output (its
+        self-attention is then causal; an encoder layer's is not).  The
+        cross k/v are projected from it at every call, as the reference
+        does."""
+        a, _ = attention_block(
+            norm(h, self.norm1, cfg.norm, cfg.norm_eps), self.attn, cfg,
+            positions, cache=cache, cache_len=cache_len,
+            causal=enc_out is not None)
+        h = h + a
+        if enc_out is not None:
+            B, F = enc_out.shape[:2]
+            H, hd = cfg.n_heads, cfg.head_dim
+            ck = (enc_out @ self.cross["wk"]).reshape(B, F, H, hd)
+            cv = (enc_out @ self.cross["wv"]).reshape(B, F, H, hd)
+            x, _ = attention_block(
+                norm(h, self.norm_x, cfg.norm, cfg.norm_eps), self.cross,
+                cfg, positions, cross_kv=(ck, cv))
+            h = h + x
+        return h + mlp_block(norm(h, self.norm2, cfg.norm, cfg.norm_eps),
+                             self.mlp, cfg.activation)
+
+
 class DenseLM(nn.Module):
-    """Decoder-only LM of the dense and MoE families.  Parameters:
-    ``embed`` (V, D), ``head`` (D, V) unless tied, ``final_norm``,
-    ``layers.<i>.*`` (``layers.<i>.moe.*`` with experts: ``router``
-    (D, E), ``w_gate`` / ``w_up`` (E, D, F), ``w_down`` (E, F, D))."""
+    """The LM of the attention families.  Parameters: ``embed`` (V, D),
+    ``head`` (D, V) unless tied, ``final_norm``, ``layers.<i>.*``
+    (`DenseLayer`s; ``layers.<i>.moe.*`` with experts: ``router`` (D, E),
+    ``w_gate`` / ``w_up`` (E, D, F), ``w_down`` (E, F, D)).  The
+    encoder-decoder family's ``layers.<i>.*`` are decoder `EncDecLayer`s,
+    and it adds ``enc_layers.<i>.*`` (encoder `EncDecLayer`s) and
+    ``enc_norm``."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator,
                  param_dtype=torch.float32):
@@ -100,7 +173,8 @@ class DenseLM(nn.Module):
                 f"PyTorch yet (the port runs the families {FAMILIES})")
         self.cfg = cfg
         with_bias = cfg.norm == "layernorm"
-        # draw order: embed, head, then the layers in order
+        # draw order: embed, head, then the layers in order (the encoder's
+        # after the decoder's)
         self.embed = nn.Parameter(_dense_init(
             gen, (cfg.vocab_size, cfg.d_model), param_dtype, scale=0.02))
         self.final_norm = _params(init_norm(cfg.d_model, param_dtype,
@@ -108,8 +182,33 @@ class DenseLM(nn.Module):
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(_dense_init(
                 gen, (cfg.d_model, cfg.vocab_size), param_dtype))
-        self.layers = nn.ModuleList(DenseLayer(cfg, gen, param_dtype)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family != "encdec":
+            self.layers = nn.ModuleList(DenseLayer(cfg, gen, param_dtype)
+                                        for _ in range(cfg.n_layers))
+            return
+        self.layers = nn.ModuleList(
+            EncDecLayer(cfg, gen, param_dtype, cross=True)
+            for _ in range(cfg.n_layers))
+        ecfg = encoder_config(cfg)
+        self.enc_layers = nn.ModuleList(
+            EncDecLayer(ecfg, gen, param_dtype, cross=False)
+            for _ in range(cfg.encoder.n_layers))
+        self.enc_norm = _params(init_norm(cfg.d_model, param_dtype,
+                                          with_bias, gen.device))
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over ``frames`` (B, F, D): non-causal
+        self-attention layers at RoPE positions 0 .. F - 1, then
+        ``enc_norm``.  Returns ``enc_out`` (B, F, D), which a decode
+        cache takes before the prefill (the reference's `_encoder`)."""
+        cfg = self.cfg
+        B, F, _ = frames.shape
+        ecfg = encoder_config(cfg)
+        positions = torch.arange(F, device=frames.device).expand(B, F)
+        h = frames
+        for layer in self.enc_layers:
+            h = layer(h, ecfg, positions)
+        return norm(h, self.enc_norm, cfg.norm, cfg.norm_eps)
 
     def forward(self, batch: Dict[str, Any], cache: Optional[dict] = None,
                 *, pm_miss_capacity: int = 0,
@@ -124,15 +223,22 @@ class DenseLM(nn.Module):
         ``cache``: a decode cache from `init_cache` whose ``len`` already
         counts this chunk; the chunk sits at positions ``[len - S, len)``,
         its k/v are written into the cache's tensors in place, and
-        ``new_cache`` is the same dict (None without a cache).
+        ``new_cache`` is the same dict (None without a cache).  The
+        encoder-decoder family reads the encoder's output from the
+        cache's ``enc_out``, and without a cache runs the encoder on
+        ``batch["frames"]``.
         ``head_last_only``: the head runs on the last position only.
         ``routes``: a list to which each MoE layer appends its
         `moe.Routing`.
 
-        batch: ``tokens`` (B, S) int, optional ``positions`` (B, S), and
-        the managed embedding's replica cache ``pm_cache_ids`` /
-        ``pm_cache_rows`` (active when ``pm_miss_capacity > 0``), with the
-        host's unique-miss count ``pm_n_miss`` and the mesh's routed block
+        batch: ``tokens`` (B, S) int, optional ``positions`` ((B, S), or
+        (B, S, 3) for M-RoPE; by default the chunk's positions, the same
+        on all three coordinates), the vlm family's ``img_embeds``
+        (B, n, D) written over the token rows at ``img_pos`` (B, n), the
+        encoder-decoder family's ``frames`` (B, F, D), and the managed
+        embedding's replica cache ``pm_cache_ids`` / ``pm_cache_rows``
+        (active when ``pm_miss_capacity > 0``), with the host's
+        unique-miss count ``pm_n_miss`` and the mesh's routed block
         ``pm_route_cap`` where the loop knows them.
         ``pm_residual``: the step's precomputed `step_residual`.
         ``embed_rows``: already-gathered (B, S, D) token rows; skips the
@@ -150,16 +256,31 @@ class DenseLM(nn.Module):
                           batch.get("pm_n_miss"), batch.get("pm_route_cap", 0))
         else:
             h = self.embed[tokens.long()]
+        if cfg.family == "vlm" and "img_embeds" in batch:
+            # out of place: ``embed_rows`` may be a leaf that requires
+            # grad; the overwritten token rows get zero gradient
+            rows = torch.arange(B, device=h.device)[:, None]
+            h = h.index_put((rows, batch["img_pos"].long()),
+                            batch["img_embeds"].to(h.dtype))
         cache_len = None if cache is None else cache["len"]
         positions = batch.get("positions")
         if positions is None:
             start = 0 if cache is None else cache_len - S
             positions = torch.arange(start, start + S,
                                      device=tokens.device).expand(B, S)
+            if cfg.mrope:
+                positions = positions[..., None].expand(B, S, 3)
         aux = torch.zeros((), dtype=h.dtype, device=h.device)
+        enc_out = None
+        if cfg.family == "encdec":
+            enc_out = self.encode(batch["frames"]) if cache is None \
+                else cache["enc_out"]
         for i, layer in enumerate(self.layers):
             kv = None if cache is None else \
                 {"k": cache["k"][i], "v": cache["v"][i]}
+            if enc_out is not None:
+                h = layer(h, cfg, positions, enc_out, kv, cache_len)
+                continue
             h, aux_l = layer(h, cfg, positions, kv, cache_len, routes)
             if aux_l is not None:
                 aux = aux + aux_l
@@ -187,8 +308,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """An empty decode cache: ``len`` 0 (a host integer) and ``k`` / ``v``
     of (L, B, S, KvH, hd), S = `cache_seq_len` — with a sliding window at
     most the window, and a chunk that would end past S raises
-    (`layers.attention_block`).  ``device`` None: ``cuda``, which raises
-    without a card."""
+    (`layers.attention_block`).  The encoder-decoder family's also holds
+    ``enc_out`` (B, n_frames, D), zeros until the caller writes the
+    encoder's output there (`DenseLM.encode`).  ``device`` None:
+    ``cuda``, which raises without a card."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family!r} family's decode state is not "
@@ -196,9 +319,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cache_seq_len(cfg, max_seq),
              cfg.n_kv_heads, cfg.head_dim)
-    return {"len": 0,
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    cache = {"len": 0,
+             "k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if cfg.family == "encdec":
+        cache["enc_out"] = torch.zeros(
+            (batch, cfg.encoder.n_frames, cfg.d_model), dtype=dtype,
+            device=dev)
+    return cache
 
 
 def init_model(cfg: ModelConfig, gen: torch.Generator,
@@ -222,22 +350,31 @@ def loss_fn(logits, labels, aux=0.0, aux_weight: float = 0.01):
 # ------------------------------------------------------- the weight carrier
 
 
-def params_to_jax(named: Mapping[str, Any], n_layers: int) -> Dict[str, Any]:
+#: the stacked layer groups of the reference's tree (`params_to_jax`)
+STACKS = ("layers", "enc_layers")
+
+
+def params_to_jax(named: Mapping[str, Any]) -> Dict[str, Any]:
     """The reference's parameter tree from the port's named parameters
     (or from any dict keyed like them, such as optimizer state): nested
-    dicts by name, with ``layers.<i>.<rest>`` stacked along a leading
-    layer axis as the reference stores them.  Leaves stay tensors."""
+    dicts by name, with ``layers.<i>.<rest>`` and ``enc_layers.<i>.<rest>``
+    stacked along a leading layer axis as the reference stores them.
+    Leaves stay tensors."""
     tree: Dict[str, Any] = {}
-    per_layer: Dict[str, list] = {}
+    per_layer: Dict[Tuple[str, str], Dict[int, Any]] = {}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(".".join(parts[2:]), [None] * n_layers)[
+        if parts[0] in STACKS:
+            per_layer.setdefault((parts[0], ".".join(parts[2:])), {})[
                 int(parts[1])] = t
             continue
         _put(tree, parts, t)
-    for rest, ts in per_layer.items():
-        _put(tree, ["layers"] + rest.split("."), torch.stack(ts))
+    for (stack, rest), ts in per_layer.items():
+        if sorted(ts) != list(range(len(ts))):
+            raise KeyError(f"{stack}.*.{rest}: layers {sorted(ts)} are not "
+                           f"0 .. {len(ts) - 1}")
+        _put(tree, [stack] + rest.split("."),
+             torch.stack([ts[i] for i in range(len(ts))]))
     return tree
 
 
@@ -245,18 +382,19 @@ def params_from_jax(tree: Mapping[str, Any],
                     shard: Optional[Tuple[int, int]] = None
                     ) -> Dict[str, Any]:
     """The port's named parameters from the reference's parameter tree
-    (leaves as numpy arrays or tensors): the stacked ``layers`` leaves are
-    split into ``layers.<i>.<rest>``.  The inverse of `params_to_jax`.
-    ``shard=(rank, n)``: the ``embed`` leaf becomes the rows rank ``rank``
-    of ``n`` owns on the vocab-parallel mesh (a view of them)."""
+    (leaves as numpy arrays or tensors): the stacked ``layers`` and
+    ``enc_layers`` leaves are split into ``<stack>.<i>.<rest>``.  The
+    inverse of `params_to_jax`.  ``shard=(rank, n)``: the ``embed`` leaf
+    becomes the rows rank ``rank`` of ``n`` owns on the vocab-parallel
+    mesh (a view of them)."""
     out: Dict[str, Any] = {}
     for path, leaf in _leaves(tree):
         if path == ("embed",) and shard is not None:
             out["embed"] = leaf[block_rows(leaf.shape[0], *shard)]
-        elif path[0] == "layers":
+        elif path[0] in STACKS:
             rest = ".".join(path[1:])
             for i in range(leaf.shape[0]):
-                out[f"layers.{i}.{rest}"] = leaf[i]
+                out[f"{path[0]}.{i}.{rest}"] = leaf[i]
         else:
             out[".".join(path)] = leaf
     return out

@@ -140,7 +140,6 @@ def checkpoint_tree(model, opt_state, backend=None) -> Optional[dict]:
     (``backend`` a `MeshBackend`) every rank must call: rank 0 gets the
     tree, whose ``embed`` leaves are the whole table in host memory
     (`MeshBackend.gather_table`), and the other ranks get None."""
-    L = model.cfg.n_layers
     mesh = getattr(backend, "mesh_real", False)
 
     def tree(named):
@@ -149,7 +148,7 @@ def checkpoint_tree(model, opt_state, backend=None) -> Optional[dict]:
             named["embed"] = backend.gather_table(named["embed"])
             if named["embed"] is None:
                 return None
-        return params_to_jax(named, L)
+        return params_to_jax(named)
 
     params = tree(model.named_parameters())
     if isinstance(opt_state, AdaGradState):

@@ -41,7 +41,11 @@ Decoding (`make_prefill_step`, `make_prefill_decode_step`,
 on a KV cache from `models.model.init_cache`.  The cache's k/v tensors
 are written in place and its ``len`` is a host integer that each step
 advances; the token embedding is a plain index of the table, as the
-reference's decode takes it with ``jnp.take`` (no Pallas kernel).
+reference's decode takes it with ``jnp.take`` (no Pallas kernel).  The
+decode steps pass tokens only (M-RoPE positions then default to the
+chunk's position on all three coordinates); an encoder-decoder model
+attends to the cache's ``enc_out``, written by the caller before the
+prefill.
 
 fp32 matmuls run in full fp32: TF32 is switched off for matmuls and
 cuDNN when a step is built.
@@ -198,7 +202,10 @@ def make_prefill_decode_step(cfg: ModelConfig) -> Callable:
     once (the training-time semantics), where the loop routes one token
     per sequence at a time.  The prompt must fit the cache.  ``routes``:
     a list to which each MoE layer appends its `moe.Routing`.  The
-    recurrent families (ssm, hybrid) are not ported yet."""
+    encoder-decoder family reads ``cache["enc_out"]``, which the caller
+    fills first (`DenseLM.encode`).  Every attention family takes this
+    chunked arm, as in the reference; the recurrent families (ssm,
+    hybrid) are not ported yet."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family!r} family's prefill is not "

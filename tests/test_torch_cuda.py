@@ -16,6 +16,7 @@ import torch.distributed as dist
 
 from repro_torch.ckpt import checkpoint
 from repro_torch.configs.registry import get_config
+from repro_torch.data.batches import make_batch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.adagrad_rows import adagrad_row_update
 from repro_torch.kernels.embed_gather import embed_gather, embed_gather_path
@@ -27,6 +28,7 @@ from repro_torch.kernels.ref import (adagrad_row_update_ref,
 from repro_torch.kernels.scatter_rows import (scatter_rows,
                                               segment_scatter_rows)
 from repro_torch.launch.mesh import init_group
+from repro_torch.models.layers import decode_attention, flash_attention
 from repro_torch.models.model import init_cache, init_model, load_params
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.pm.collectives import (EmulatedBackend, make_backend,
@@ -125,7 +127,8 @@ def test_training_kernels_match_plain(dev, D, dtype):
                                    "segment_scatter_rows": 0}
 
 
-@pytest.mark.parametrize("arch", ["nemotron-4-15b", "smollm-135m"])
+@pytest.mark.parametrize("arch", ["nemotron-4-15b", "smollm-135m",
+                                  "qwen2-vl-7b", "whisper-medium"])
 def test_train_loop_on_the_card_equals_the_cpu(dev, arch, tmp_path):
     """The same start (a checkpoint with a warm accumulator) trained on
     CUDA through the kernels and on the CPU through the plain versions:
@@ -184,12 +187,53 @@ def test_moe_block_on_the_card_equals_the_cpu(dev, capacity_factor):
     np.testing.assert_allclose(float(aux_d), float(aux_c), rtol=1e-5)
 
 
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-medium"])
+def test_forward_on_the_card_equals_the_cpu(dev, arch):
+    """One forward of the smoke config over a batch with the family's
+    extra inputs (image rows and M-RoPE positions, or frames) on CUDA
+    against the CPU: logits within rtol 1e-4 / atol 1e-5."""
+    full_fp32_matmuls()
+    cfg = get_config(arch, smoke=True)
+    model = init_model(cfg, torch.Generator().manual_seed(0))
+    on_card = init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    load_params(on_card, {k: v.detach() for k, v in
+                          model.named_parameters()})
+    batch = make_batch(cfg, 2, 16, np.random.default_rng(4))
+    with torch.no_grad():
+        want, _, _ = model(batch)
+        got, _, _ = on_card({k: v.to(dev) for k, v in batch.items()})
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [0, 300])
+def test_flash_attention_on_the_card_equals_decode_attention(dev, window):
+    """Blocked causal attention over 2000 positions (4 q blocks, the last
+    ragged, against 2 kv blocks; GQA 8:2) against `decode_attention` with
+    ``cache_len`` 2000 on the card, and against itself on the CPU: within
+    rtol 1e-4 / atol 1e-5."""
+    full_fp32_matmuls()
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn((1, 2000, 8, 64), generator=g)
+    k, v = (torch.randn((1, 2000, 2, 64), generator=g) for _ in range(2))
+    got = flash_attention(q.to(dev), k.to(dev), v.to(dev), causal=True,
+                          window=window)
+    want = decode_attention(q.to(dev), k.to(dev), v.to(dev), 2000,
+                            window=window)
+    cpu = flash_attention(q, k, v, causal=True, window=window)
+    for other in (want.cpu(), cpu):
+        np.testing.assert_allclose(got.cpu().numpy(), other.numpy(),
+                                   rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-30b-a3b",
-                                  "mixtral-8x22b"])
+                                  "mixtral-8x22b", "qwen2-vl-7b",
+                                  "whisper-medium"])
 def test_decode_on_the_card_equals_the_cpu(dev, arch):
     """The fused prefill and four one-token steps on CUDA against the same
     on the CPU (one set of weights, the CPU run's greedy tokens fed to
-    both): logits within rtol 1e-4 / atol 1e-5 at every step, and no
+    both; whisper's caches first take the encoder's output over the same
+    frames): logits within rtol 1e-4 / atol 1e-5 at every step, and no
     kernel launched (the decode path's embedding is a plain index)."""
     cfg = get_config(arch, smoke=True)
     model = init_model(cfg, torch.Generator().manual_seed(0))
@@ -204,6 +248,11 @@ def test_decode_on_the_card_equals_the_cpu(dev, arch):
     c_cpu = init_cache(cfg, 2, 10, device="cpu")
     c_dev = init_cache(cfg, 2, 10)
     assert c_dev["k"].device.type == "cuda"
+    if cfg.family == "encdec":
+        frames = make_batch(cfg, 2, 6, np.random.default_rng(5))["frames"]
+        with torch.no_grad():
+            c_cpu["enc_out"] = model.encode(frames)
+            c_dev["enc_out"] = on_card.encode(frames.to(dev))
     lg_c, c_cpu = prefill(model, c_cpu, prompt)
     lg_d, c_dev = prefill(on_card, c_dev, prompt.to(dev))
     for _ in range(4):

@@ -74,14 +74,16 @@ def test_registry_names_the_ported_archs():
     assert get_config("mixtral-8x22b").sliding_window == 4096
     moe = get_config("qwen3-moe-30b-a3b")
     assert (moe.family, moe.n_experts, moe.top_k) == ("moe", 128, 8)
+    vlm, encdec = get_config("qwen2-vl-7b"), get_config("whisper-medium")
+    assert (vlm.family, vlm.mrope_sections) == ("vlm", (16, 24, 24))
+    assert (encdec.family, encdec.encoder.n_frames) == ("encdec", 1500)
     for arch in ("granite-20b", "llama3-405b", "mixtral-8x22b",
-                 "qwen3-moe-30b-a3b"):
+                 "qwen3-moe-30b-a3b", "qwen2-vl-7b", "whisper-medium"):
         for smoke in (False, True):
             assert dataclasses.asdict(get_config(arch, smoke)) == \
                 dataclasses.asdict(jget_config(arch, smoke)), (arch, smoke)
-    # the four families still left
-    for arch in ("falcon-mamba-7b", "zamba2-1.2b", "whisper-medium",
-                 "qwen2-vl-7b"):
+    # the two families still left
+    for arch in ("falcon-mamba-7b", "zamba2-1.2b"):
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config(arch)
     with pytest.raises(KeyError):
@@ -92,7 +94,7 @@ def test_registry_names_the_ported_archs():
 def test_carrier_round_trip(arch):
     cfg, jp, model = carried(arch)
     back = params_to_jax({k: v.detach() for k, v in
-                          model.named_parameters()}, cfg.n_layers)
+                          model.named_parameters()})
     want = leaves(jp)
     got = leaves(back)
     assert set(got) == set(want)
@@ -184,10 +186,9 @@ def test_one_step_matches_jax(arch, kernel):
                            pm_kernel=kernel)
     tl, model, state = step(model, state, tb)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
-    L = cfg.n_layers
     got = leaves(params_to_jax({k: v.detach() for k, v in
-                                model.named_parameters()}, L))
-    got_acc = leaves(params_to_jax(state.accum, L))
+                                model.named_parameters()}))
+    got_acc = leaves(params_to_jax(state.accum))
     for want, have in ((leaves(jp2), got), (leaves(js2.accum), got_acc)):
         assert set(want) == set(have)
         for k in want:

@@ -93,7 +93,7 @@ def test_moe_carrier_round_trip(arch):
     named = {k: v.detach() for k, v in model.named_parameters()}
     assert tuple(named["layers.1.moe.w_down"].shape) == \
         (cfg.n_experts, cfg.moe_d_ff, cfg.d_model)
-    got = leaves(params_to_jax(named, cfg.n_layers))
+    got = leaves(params_to_jax(named))
     want = leaves(jp)
     assert set(got) == set(want)
     assert want["layers/moe/w_gate"].shape == \
@@ -121,7 +121,7 @@ def test_moe_loss_and_gradients_match_jax():
     assert float(aux.detach()) > 0
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
     got = leaves(params_to_jax({k: p.grad for k, p in
-                                model.named_parameters()}, cfg.n_layers))
+                                model.named_parameters()}))
     want = leaves(jg)
     assert set(got) == set(want)
     for k in want:
@@ -155,10 +155,9 @@ def test_moe_one_step_matches_jax(kernel):
                            pm_kernel=kernel)
     tl, model, state = step(model, state, tb)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
-    L = cfg.n_layers
     got = leaves(params_to_jax({k: v.detach() for k, v in
-                                model.named_parameters()}, L))
-    got_acc = leaves(params_to_jax(state.accum, L))
+                                model.named_parameters()}))
+    got_acc = leaves(params_to_jax(state.accum))
     for want, have in ((leaves(jp2), got), (leaves(js2.accum), got_acc)):
         assert set(want) == set(have)
         for k in want:

@@ -51,10 +51,15 @@ order it:
    with 4 of its 48 layers (the MoE family, untied: the fused arm),
    qwen2-vl-7b at its published widths with 4 of its 28 layers (the vlm
    family, untied: the fused arm; 16 image rows a sequence, at M-RoPE
-   positions whose t, h and w coordinates differ over the image) and
+   positions whose t, h and w coordinates differ over the image),
    whisper-medium at its full config (the encdec family, 24 + 24 layers
-   over 1500 frames, tied: the dense arm), 16 steps of 8 x 64 tokens
-   each (whisper: 4 x 64) through the kernels (AdaGrad at lr 1e-4, where
+   over 1500 frames, tied: the dense arm), falcon-mamba-7b at its
+   published widths with 8 of its 64 layers (the ssm family: Mamba-1,
+   D 4096, d_inner 8192, N 16, untied: the fused arm) and zamba2-1.2b at
+   its full config (the hybrid family: 38 Mamba-2 layers and 7
+   applications of one shared attention block, untied: the fused arm),
+   16 steps of 8 x 64 tokens each (whisper: 4 x 64) through the kernels
+   (AdaGrad at lr 1e-4, where
    the reference's 0.01 diverges at these widths, and 0.01 on smollm),
    checks finite losses, no overflow and which kernels ran, then the same
    run through the plain versions, whose loss trace must agree within
@@ -62,15 +67,18 @@ order it:
    `torch.profiler`, to show where a step's time goes;
 6. decodes smollm-135m (full config), qwen3-moe-30b-a3b (4 of 48
    layers), mixtral-8x22b (2 of 56 layers, its sliding window, at
-   D 6144), qwen2-vl-7b (4 of 28 layers, text only) and whisper-medium
-   (full, against the encoder's output over the batch's frames): a batch
-   of 8 with a 64-token prompt, a fused prefill into a KV cache, then 32
+   D 6144), qwen2-vl-7b (4 of 28 layers, text only), whisper-medium
+   (full, against the encoder's output over the batch's frames),
+   falcon-mamba-7b (all 64 layers) and zamba2-1.2b (full): a batch of 8
+   with a 64-token prompt, a fused prefill into a KV cache (the ssm
+   family: its O(1) conv and scan state; the hybrid: both), then 32
    greedy one-token steps; holds the fused prefill's last logits against
    a token-by-token prefill and the decoded logits against one
    teacher-forced forward over the consumed tokens, within 2e-3 (the MoE
    models at the positions where, there and before, both paths routed
    alike and dropped nothing; the count left out is printed), then times
-   prefill and steps;
+   prefill and steps, and prints the decode state's bytes for a cache of
+   96 and of 524288 positions (falcon-mamba's must not change);
 7. holds the blocked `flash_attention` against `decode_attention` at
    4096 positions on nemotron-4-15b's heads, then prefills one
    32768-token prompt through nemotron-4-15b (4 of 32 layers) without a
@@ -147,7 +155,7 @@ PROFILE_STEPS_OF = {"whisper-medium": 6}
 # nemotron-4-15b's 32 layers, and qwen3-moe-30b-a3b's 48 (2.46 GB of
 # parameters per layer, about 7.4 GB of state: 354 GB in all)
 TRAIN_LAYERS = {"nemotron-4-15b": 4, "qwen3-moe-30b-a3b": 4,
-                "qwen2-vl-7b": 4}
+                "qwen2-vl-7b": 4, "falcon-mamba-7b": 8}
 MOE_ARCH = "qwen3-moe-30b-a3b"
 # the vlm and encdec families: qwen2-vl-7b at its published widths with 4
 # of its 28 layers (about 2.0 G parameters, 22 GB with the AdaGrad state;
@@ -156,8 +164,17 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 # frames each: under autograd each encoder layer keeps its attention's
 # (B, 16, 1500, 1500) fp32 probabilities, 0.58 GB a layer at B = 4
 VLM_ARCH, ENCDEC_ARCH = "qwen2-vl-7b", "whisper-medium"
-FAMILY_ARCHS = (VLM_ARCH, ENCDEC_ARCH)
-TRAIN_BATCH = {ENCDEC_ARCH: 4}
+# the ssm and hybrid families: falcon-mamba-7b at its published widths
+# with 8 of its 64 layers (1.375 G parameters, about 16.5 GB with the
+# AdaGrad state; 64 layers would need about 87 GB for that state alone),
+# zamba2-1.2b at its full config (38 Mamba-2 layers, 7 applications of
+# the shared attention block; 1.17 G parameters, about 14 GB with state)
+# at 8 x 64 tokens: under autograd each Mamba-2 layer keeps its states h,
+# (8, 64, 64, 64, 64) fp32 or 0.54 GB, about 20 GB over 38 layers, and
+# the scan's transients add about 2 GB: a peak near 40 GB, under 70
+SSM_ARCH, HYBRID_ARCH = "falcon-mamba-7b", "zamba2-1.2b"
+FAMILY_ARCHS = (VLM_ARCH, ENCDEC_ARCH, SSM_ARCH, HYBRID_ARCH)
+TRAIN_BATCH = {ENCDEC_ARCH: 4, HYBRID_ARCH: 8}
 IMG_GRID = 4                  # the image rows of a vlm batch: a 4 x 4 grid
 TRAIN_KNOBS = dict(cache_capacity=1024, refresh_every=2, pipeline_depth=1,
                    n_shards=4, plan_every=8)
@@ -166,14 +183,21 @@ TRAIN_KNOBS = dict(cache_capacity=1024, refresh_every=2, pipeline_depth=1,
 # against a 1/sqrt(6144) init: loss 13.2 -> 70 in four steps), and a
 # diverging run amplifies rounding into a different trace; 1e-4 trains
 TRAIN_LR = {"nemotron-4-15b": 1e-4, "smollm-135m": 1e-2,
-            MOE_ARCH: 1e-4, VLM_ARCH: 1e-4, ENCDEC_ARCH: 1e-4}
+            MOE_ARCH: 1e-4, VLM_ARCH: 1e-4, ENCDEC_ARCH: 1e-4,
+            SSM_ARCH: 1e-4, HYBRID_ARCH: 1e-4}
 # decoding: a batch of 8 with a 64-token prompt, a fused prefill, then 32
 # greedy one-token steps; (arch, layers kept) — mixtral-8x22b's 2 of 56
 # layers hold about 21 GB of fp32 weights; whisper-medium decodes against
-# the encoder's output over the batch's frames
+# the encoder's output over the batch's frames; falcon-mamba-7b at its
+# full 64 layers (29.1 GB of fp32 weights) and zamba2-1.2b in full
+# decode through the recurrent state
 DECODE_B, DECODE_PROMPT, DECODE_STEPS = 8, 64, 32
 DECODE = (("smollm-135m", None), (MOE_ARCH, 4), ("mixtral-8x22b", 2),
-          (VLM_ARCH, 4), (ENCDEC_ARCH, None))
+          (VLM_ARCH, 4), (ENCDEC_ARCH, None), (SSM_ARCH, None),
+          (HYBRID_ARCH, None))
+# the decode state's size is also reckoned for a cache of this many
+# positions (`long_500k`'s context), on the meta device
+LONG_CONTEXT = 524288
 # the long prefill: nemotron-4-15b (4 of 32 layers, about 19 GB of fp32
 # weights) over one 32768-token prompt (`configs/shapes.py`'s prefill_32k
 # length), held against the same prompt prefilled into a KV cache in
@@ -1346,7 +1370,9 @@ def decode(arch: str, n_layers, dev) -> dict:
     random prompt of DECODE_B x DECODE_PROMPT tokens; an encoder-decoder
     model's frames drawn as the training loader draws them, and its
     encoder run once over them first): `decode_checks`, then a timed run
-    of the same prefill and DECODE_STEPS greedy steps.  The decode path
+    of the same prefill and DECODE_STEPS greedy steps, and the decode
+    state's bytes for a cache of the run's length and of LONG_CONTEXT
+    positions (the ssm family's must be the same).  The decode path
     launches none of the kernels (its embedding is a plain index, as the
     reference's ``jnp.take``)."""
     import torch
@@ -1377,6 +1403,11 @@ def decode(arch: str, n_layers, dev) -> dict:
     launches = ops.launch_counts()
     if any(launches.values()):
         raise AssertionError(f"{arch}: decoding launched {launches}")
+    state = {n: state_bytes(cfg, n)
+             for n in (DECODE_PROMPT + DECODE_STEPS, LONG_CONTEXT)}
+    if cfg.family == "ssm" and len(set(state.values())) != 1:
+        raise AssertionError(f"{arch}: the recurrent state grows with the "
+                             f"context: {state}")
     out = {"arch": arch, "n_layers": cfg.n_layers,
            "batch": DECODE_B, "prompt": DECODE_PROMPT,
            "steps": DECODE_STEPS, "cache_positions":
@@ -1385,11 +1416,20 @@ def decode(arch: str, n_layers, dev) -> dict:
            "decode_ms_per_token": steps_s * 1e3 / DECODE_STEPS,
            "decode_tokens_per_s": DECODE_B * DECODE_STEPS / steps_s,
            "prefill_tokens_per_s": DECODE_B * DECODE_PROMPT / prefill_s,
-           "checks": checks,
+           "checks": checks, "state_bytes_by_max_seq": state,
            "peak_alloc_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     del model
     free_card()
     return out
+
+
+def state_bytes(cfg, max_seq: int) -> int:
+    """The bytes of a DECODE_B-sequence decode cache for ``max_seq``
+    positions (built on the meta device, so nothing is allocated)."""
+    from repro_torch.models.model import init_cache
+    cache = init_cache(cfg, DECODE_B, max_seq, device="meta")
+    return sum(t.numel() * t.element_size() for name, t in cache.items()
+               if name != "len")
 
 
 def check_flash_attention(dev, S: int = FLASH_CHECK_S,

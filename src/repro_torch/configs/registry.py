@@ -1,6 +1,6 @@
-"""Architecture registry: ``get_config(arch_id)`` resolution for the
-architectures the port runs so far (the dense, MoE, vlm and encdec
-families)."""
+"""Architecture registry: ``get_config(arch_id)`` resolution for every
+architecture of the reference (the dense, MoE, ssm, hybrid, vlm and
+encdec families)."""
 from importlib import import_module
 
 _MODULES = {
@@ -11,23 +11,16 @@ _MODULES = {
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "llama3-405b": "repro_torch.configs.llama3_405b",
     "nemotron-4-15b": "repro_torch.configs.nemotron_4_15b",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
-
-#: every architecture of the reference; the others are not ported yet
-KNOWN = ("whisper-medium", "granite-20b", "smollm-135m", "qwen2-vl-7b",
-         "mixtral-8x22b", "llama3-405b", "nemotron-4-15b", "falcon-mamba-7b",
-         "qwen3-moe-30b-a3b", "zamba2-1.2b")
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(arch_id: str, smoke: bool = False):
     if arch_id not in _MODULES:
-        if arch_id in KNOWN:
-            raise NotImplementedError(
-                f"arch {arch_id!r} is not ported to PyTorch yet; ported: "
-                f"{ARCH_IDS}")
-        raise KeyError(f"unknown arch {arch_id!r}; known: {KNOWN}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = import_module(_MODULES[arch_id])
     return mod.SMOKE if smoke else mod.CONFIG

@@ -1,1 +1,1 @@
-"""Model assembly (the twin of `repro/models`): the dense family."""
+"""Model assembly (the twin of `repro/models`): every family."""

@@ -1,8 +1,14 @@
-"""Model assembly for the attention families (the twin of
-`repro/models/model.py`): a pre-norm GQA transformer as an `nn.Module`.
+"""Model assembly for every family of the reference (the twin of
+`repro/models/model.py`), as one `nn.Module`, `DenseLM`:
 
-* dense / moe: decoder layers whose FFN is an MLP, or a mixture of
-  experts when ``cfg.n_experts``;
+* dense / moe: a pre-norm GQA transformer whose FFN is an MLP, or a
+  mixture of experts when ``cfg.n_experts``;
+* ssm (falcon-mamba): a Mamba-1 trunk (attention-free): pre-norm
+  residual `SSMLayer`s, no MLP;
+* hybrid (zamba2): a Mamba-2 trunk with one *shared* attention block (a
+  `DenseLayer`, ``shared_attn``) applied before the Mamba block of every
+  layer whose index is a multiple of ``attn_every`` (weight reuse, no
+  per-application LoRA, as the reference simplifies it);
 * vlm (Qwen2-VL): the dense stack, with precomputed image-patch
   embeddings (the ViT is a stub) written over the token rows at
   ``img_pos``, and M-RoPE positions (B, S, 3);
@@ -12,27 +18,31 @@
   encoder's output and an MLP.
 
 The reference stacks every layer's weights along a leading layer axis and
-scans over it; here each layer is its own module.  `params_from_jax` and
-`params_to_jax` carry weights between the two layouts (JAX parameter tree
-<-> the module's named parameters; ``layers`` and ``enc_layers`` alike),
-so a checkpoint written by either package loads in the other
-(`ckpt/checkpoint.py`).
+scans over it (branching on the layer index with `lax.cond` in the
+hybrid); here each layer is its own module and the host decides where
+the shared block runs.  `params_from_jax` and `params_to_jax` carry
+weights between the two layouts (JAX parameter tree <-> the module's
+named parameters; ``layers`` and ``enc_layers`` are stacked,
+``shared_attn`` is not), so a checkpoint written by either package loads
+in the other (`ckpt/checkpoint.py`).
 
 ``forward`` returns ``(logits, aux, new_cache)`` like the reference
 (``aux`` is the layers' summed MoE load-balance loss, zero without
 experts; ``skip_head=True`` returns the final hidden state in place of
 the logits, for `losses.vocab_parallel_ce`); ``loss_fn`` is its mean
-cross-entropy.  Decoding passes a KV cache from `init_cache`, whose
-``len`` is a host integer (the reference keeps a device scalar): the
-chunk's positions and cache writes then need no device read.  An
-encoder-decoder cache also holds ``enc_out``, which the caller fills
-with `DenseLM.encode` before the prefill.
+cross-entropy.  Decoding passes a cache from `init_cache`, whose ``len``
+is a host integer (the reference keeps a device scalar): the chunk's
+positions and cache writes then need no device read.  The attention
+families' caches hold k/v; the ssm family's the O(1) recurrent state (a
+conv ring and ``h`` per layer, whatever ``max_seq``); the hybrid's both,
+one KV cache per application of the shared block.  Every cache tensor is
+written in place.  An encoder-decoder cache also holds ``enc_out``,
+which the caller fills with `DenseLM.encode` before the prefill.
 
 On the vocab-parallel mesh the model's ``embed`` is this rank's block of
 the table (the training loop places it), and a checkpoint's ``embed``
 leaves load as that block (`params_from_jax` with ``shard``).
 """
-
 from __future__ import annotations
 
 import dataclasses
@@ -49,10 +59,11 @@ from repro_torch.pm.embedding import pm_lookup
 from .layers import (_dense_init, attention_block, init_attention, init_mlp,
                      init_norm, mlp_block, norm)
 from .moe import init_moe, moe_block
+from .ssm import init_mamba1, init_mamba2, mamba1_block, mamba2_block
 
-#: the families the port runs: `DenseLayer` stacks (the reference's
-#: `_dense_stack`) and the encoder-decoder's `EncDecLayer` stacks
-FAMILIES = ("dense", "moe", "vlm", "encdec")
+#: the recurrent families: `SSMLayer` trunks (the reference's `_ssm_stack`
+#: and `_hybrid_stack`), decoded through an O(1) state
+RECURRENT = ("ssm", "hybrid")
 
 
 def _params(d: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
@@ -97,6 +108,39 @@ class DenseLayer(nn.Module):
                                   routes=routes)
             return h + m, aux
         return h + mlp_block(hn, self.mlp, cfg.activation), None
+
+
+class SSMLayer(nn.Module):
+    """One pre-norm residual Mamba layer, no MLP: ``norm1`` (RMSNorm
+    without bias, as the reference's) and ``mamba``, a Mamba-1 block
+    (``cfg.ssm_version`` 1) or a Mamba-2 block."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype):
+        super().__init__()
+        self.norm1 = _params(init_norm(cfg.d_model, dtype, False,
+                                       gen.device))
+        if cfg.ssm_version == 1:
+            mamba = init_mamba1(gen, cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                                cfg.ssm_conv, cfg.dt_rank, dtype)
+        else:
+            mamba = init_mamba2(gen, cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                                cfg.ssm_conv, cfg.ssm_head_dim, dtype)
+        self.mamba = _params(mamba)
+
+    def forward(self, h, cfg: ModelConfig, state=None):
+        """``state``: this layer's (conv ring, h) of a decode cache, written
+        in place with the state after the chunk."""
+        hn = norm(h, self.norm1, cfg.norm, cfg.norm_eps)
+        if cfg.ssm_version == 1:
+            y, new = mamba1_block(hn, self.mamba, ssm_state=cfg.ssm_state,
+                                  dt_rank=cfg.dt_rank, state=state)
+        else:
+            y, new = mamba2_block(hn, self.mamba, ssm_state=cfg.ssm_state,
+                                  head_dim=cfg.ssm_head_dim, state=state)
+        if state is not None:
+            for old, t in zip(state, new):
+                old.copy_(t)
+        return h + y
 
 
 def encoder_config(cfg: ModelConfig) -> ModelConfig:
@@ -156,10 +200,12 @@ class EncDecLayer(nn.Module):
 
 
 class DenseLM(nn.Module):
-    """The LM of the attention families.  Parameters: ``embed`` (V, D),
-    ``head`` (D, V) unless tied, ``final_norm``, ``layers.<i>.*``
-    (`DenseLayer`s; ``layers.<i>.moe.*`` with experts: ``router`` (D, E),
-    ``w_gate`` / ``w_up`` (E, D, F), ``w_down`` (E, F, D)).  The
+    """The LM of every family.  Parameters: ``embed`` (V, D), ``head``
+    (D, V) unless tied, ``final_norm``, ``layers.<i>.*`` (`DenseLayer`s;
+    ``layers.<i>.moe.*`` with experts: ``router`` (D, E), ``w_gate`` /
+    ``w_up`` (E, D, F), ``w_down`` (E, F, D)).  The ssm and hybrid
+    families' ``layers.<i>.*`` are `SSMLayer`s (``norm1``, ``mamba.*``),
+    and the hybrid adds ``shared_attn.*``, one `DenseLayer`.  The
     encoder-decoder family's ``layers.<i>.*`` are decoder `EncDecLayer`s,
     and it adds ``enc_layers.<i>.*`` (encoder `EncDecLayer`s) and
     ``enc_norm``."""
@@ -167,14 +213,10 @@ class DenseLM(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator,
                  param_dtype=torch.float32):
         super().__init__()
-        if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: family {cfg.family!r} is not ported to "
-                f"PyTorch yet (the port runs the families {FAMILIES})")
         self.cfg = cfg
         with_bias = cfg.norm == "layernorm"
         # draw order: embed, head, then the layers in order (the encoder's
-        # after the decoder's)
+        # after the decoder's, the hybrid's shared block last)
         self.embed = nn.Parameter(_dense_init(
             gen, (cfg.vocab_size, cfg.d_model), param_dtype, scale=0.02))
         self.final_norm = _params(init_norm(cfg.d_model, param_dtype,
@@ -182,6 +224,12 @@ class DenseLM(nn.Module):
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(_dense_init(
                 gen, (cfg.d_model, cfg.vocab_size), param_dtype))
+        if cfg.family in RECURRENT:
+            self.layers = nn.ModuleList(SSMLayer(cfg, gen, param_dtype)
+                                        for _ in range(cfg.n_layers))
+            if cfg.family == "hybrid":
+                self.shared_attn = DenseLayer(cfg, gen, param_dtype)
+            return
         if cfg.family != "encdec":
             self.layers = nn.ModuleList(DenseLayer(cfg, gen, param_dtype)
                                         for _ in range(cfg.n_layers))
@@ -262,14 +310,33 @@ class DenseLM(nn.Module):
             rows = torch.arange(B, device=h.device)[:, None]
             h = h.index_put((rows, batch["img_pos"].long()),
                             batch["img_embeds"].to(h.dtype))
-        cache_len = None if cache is None else cache["len"]
         positions = batch.get("positions")
         if positions is None:
-            start = 0 if cache is None else cache_len - S
+            start = 0 if cache is None else cache["len"] - S
             positions = torch.arange(start, start + S,
                                      device=tokens.device).expand(B, S)
             if cfg.mrope:
                 positions = positions[..., None].expand(B, S, 3)
+        if cfg.family in RECURRENT:
+            h = self._recurrent(h, positions, cache)
+            aux = torch.zeros((), dtype=h.dtype, device=h.device)
+        else:
+            h, aux = self._attention(batch, h, positions, cache, routes)
+        h = norm(h, self.final_norm, cfg.norm, cfg.norm_eps)
+        if head_last_only:
+            h = h[:, -1:]
+        if skip_head:
+            return h, aux, cache
+        head = self.embed.T if cfg.tie_embeddings else self.head
+        return h @ head, aux, cache
+
+    def _attention(self, batch, h, positions, cache, routes):
+        """The attention families' stack; returns (h, summed MoE aux).
+        The encoder-decoder decoder attends to the encoder's output: the
+        cache's ``enc_out``, or without a cache the encoder run over
+        ``batch["frames"]``."""
+        cfg = self.cfg
+        cache_len = None if cache is None else cache["len"]
         aux = torch.zeros((), dtype=h.dtype, device=h.device)
         enc_out = None
         if cfg.family == "encdec":
@@ -284,13 +351,28 @@ class DenseLM(nn.Module):
             h, aux_l = layer(h, cfg, positions, kv, cache_len, routes)
             if aux_l is not None:
                 aux = aux + aux_l
-        h = norm(h, self.final_norm, cfg.norm, cfg.norm_eps)
-        if head_last_only:
-            h = h[:, -1:]
-        if skip_head:
-            return h, aux, cache
-        head = self.embed.T if cfg.tie_embeddings else self.head
-        return h @ head, aux, cache
+        return h, aux
+
+    def _recurrent(self, h, positions, cache):
+        """The ssm / hybrid trunk: `SSMLayer`s in order, the hybrid's
+        ``shared_attn`` before layer ``i`` when ``i % attn_every == 0``
+        (its application ``i // attn_every``, with that application's KV
+        cache).  With a cache, each layer reads and writes its (conv,
+        h) state in place."""
+        cfg = self.cfg
+        every = cfg.attn_every                   # 0 in the ssm family
+        for i, layer in enumerate(self.layers):
+            if every and i % every == 0:
+                app = i // every
+                kv = None if cache is None else \
+                    {"k": cache["attn_k"][app], "v": cache["attn_v"][app]}
+                h, _ = self.shared_attn(
+                    h, cfg, positions, kv,
+                    None if cache is None else cache["len"])
+            state = None if cache is None else \
+                (cache["conv"][i], cache["h"][i])
+            h = layer(h, cfg, state)
+        return h
 
 
 def n_attn_apps(cfg: ModelConfig) -> int:
@@ -305,27 +387,45 @@ def cache_seq_len(cfg: ModelConfig, max_seq: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.float32, device=None) -> Dict[str, Any]:
-    """An empty decode cache: ``len`` 0 (a host integer) and ``k`` / ``v``
-    of (L, B, S, KvH, hd), S = `cache_seq_len` — with a sliding window at
-    most the window, and a chunk that would end past S raises
-    (`layers.attention_block`).  The encoder-decoder family's also holds
-    ``enc_out`` (B, n_frames, D), zeros until the caller writes the
-    encoder's output there (`DenseLM.encode`).  ``device`` None:
-    ``cuda``, which raises without a card."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family!r} family's decode state is not "
-            f"ported to PyTorch yet")
+    """An empty decode cache, ``len`` 0 (a host integer), with the
+    reference's tensors:
+
+    * attention families: ``k`` / ``v`` of (L, B, S, KvH, hd), S =
+      `cache_seq_len` — with a sliding window at most the window, and a
+      chunk that would end past S raises (`layers.attention_block`); the
+      encoder-decoder family's also holds ``enc_out`` (B, n_frames, D),
+      zeros until the caller writes the encoder's output there
+      (`DenseLM.encode`);
+    * ssm: ``conv`` (L, B, K-1, d_inner) and ``h`` (L, B, d_inner, N) in
+      fp32, whatever ``max_seq``;
+    * hybrid: ``conv``, ``h`` (L, B, nh, hd, N) in fp32, and ``attn_k`` /
+      ``attn_v`` (A, B, S, KvH, hd), one per application of the shared
+      block (`n_attn_apps`).
+
+    ``device`` None: ``cuda``, which raises without a card."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cache_seq_len(cfg, max_seq),
-             cfg.n_kv_heads, cfg.head_dim)
-    cache = {"len": 0,
-             "k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    L = cfg.n_layers
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    kv = (batch, cache_seq_len(cfg, max_seq), cfg.n_kv_heads, cfg.head_dim)
+    cache: Dict[str, Any] = {"len": 0}
+    if cfg.family in RECURRENT:
+        cache["conv"] = zeros(L, batch, cfg.ssm_conv - 1, cfg.d_inner)
+        if cfg.family == "ssm":
+            cache["h"] = zeros(L, batch, cfg.d_inner, cfg.ssm_state,
+                               dt=torch.float32)
+            return cache
+        cache["h"] = zeros(L, batch, cfg.d_inner // cfg.ssm_head_dim,
+                           cfg.ssm_head_dim, cfg.ssm_state, dt=torch.float32)
+        cache["attn_k"] = zeros(n_attn_apps(cfg), *kv)
+        cache["attn_v"] = zeros(n_attn_apps(cfg), *kv)
+        return cache
+    cache["k"] = zeros(L, *kv)
+    cache["v"] = zeros(L, *kv)
     if cfg.family == "encdec":
-        cache["enc_out"] = torch.zeros(
-            (batch, cfg.encoder.n_frames, cfg.d_model), dtype=dtype,
-            device=dev)
+        cache["enc_out"] = zeros(batch, cfg.encoder.n_frames, cfg.d_model)
     return cache
 
 

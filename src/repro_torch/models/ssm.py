@@ -1,0 +1,258 @@
+"""State-space blocks (the twin of `repro/models/ssm.py`): Mamba-1
+(selective scan, falcon-mamba) and a simplified Mamba-2 / SSD block (the
+zamba2 trunk).  Plain torch, as the reference is plain `jnp`: no Pallas
+kernel computes any of it.
+
+Training and prefill run the linear recurrence ``h_t = a_t * h_{t-1} +
+b_t`` through `linear_scan`, the reference's chunked scan as a
+`torch.autograd.Function`: within a chunk a log-depth (Hillis-Steele)
+doubling scan with `_scan_op`'s algebra, across chunks a loop that
+carries ``h``.  Its backward is the same scan reversed in time, so it
+saves only ``a``, ``h`` and ``h0``: a chain of torch ops would keep every
+doubling level's (B, S, ..., N) operands for the backward, about 2 log2
+(chunk) tensors of the states' size per layer.  A ragged last chunk is
+scanned at its own length; the reference pads it with identity elements
+(``a = 1``, ``b = 0``) after its last position, which changes no earlier
+position.  ``a`` may broadcast against ``b``: Mamba-2's per-head decay
+stays (B, S, nh, 1, 1), the same products as the reference's
+materialised ``a_full`` without a (B, S, nh, hd, N) copy.
+
+Decoding passes ``state`` = (conv ring (B, K-1, C), h).  A one-token
+step is the reference's single recurrence step ``a_0 * h + b_0``; a
+longer chunk (the fused prefill) runs `linear_scan` seeded with the
+state's ``h``, and its causal conv reads the state's ring in place of
+zero padding.  Both write the state back: the final ``h`` and the last
+K-1 conv inputs.  The reference's prefill of these families instead runs
+the prompt one position at a time (`repro/train/steps.py`,
+``prefill_scan``); the chunk gives the same values up to rounding.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .layers import _dense_init
+
+Params = Dict[str, torch.Tensor]
+
+
+def _scan_chunk(a, b, reverse: bool):
+    """In place over one chunk (time on axis 1): (a, b) become the
+    cumulative compositions of `repro.models.ssm._scan_op`, from the
+    chunk's start (or, ``reverse``, from its end) to each position."""
+    C, d = b.shape[1], 1
+    while d < C:
+        if reverse:
+            b[:, :-d] += a[:, :-d] * b[:, d:]
+            a[:, :-d] = a[:, :-d] * a[:, d:]
+        else:
+            b[:, d:] += a[:, d:] * b[:, :-d]
+            a[:, d:] = a[:, d:] * a[:, :-d]
+        d *= 2
+    return a, b
+
+
+def _chunked(a, b, h0, chunk: int, reverse: bool = False):
+    """h_t = a_t * h_{t-1} + b_t over axis 1, seeded with ``h0``, chunk by
+    chunk.  ``reverse``: the backward's recurrence, from the end, which
+    reads the next position's decay: h_t = a_{t+1} * h_{t+1} + b_t (with
+    a_S = 1 and h_S = ``h0``).  Returns h (the shape of ``b``)."""
+    S = b.shape[1]
+    chunk = max(1, min(chunk, S))
+    starts = range(0, S, chunk)
+    out = torch.empty_like(b)
+    carry = h0
+    for c0 in (reversed(starts) if reverse else starts):
+        c1 = min(c0 + chunk, S)
+        ac = a[:, c0 + 1:c1 + 1] if reverse else a[:, c0:c1]
+        ac = torch.cat([ac, torch.ones_like(a[:, :1])], dim=1) \
+            if reverse and c1 == S else ac.clone()
+        a_cum, b_cum = _scan_chunk(ac, b[:, c0:c1].clone(), reverse)
+        h = b_cum.add_(a_cum * carry.unsqueeze(1))
+        out[:, c0:c1] = h
+        carry = h[:, 0] if reverse else h[:, -1]
+    return out
+
+
+def _sum_to(x, shape):
+    """``x`` summed over the dimensions where ``shape`` broadcasts."""
+    dims = tuple(i for i, (n, m) in enumerate(zip(x.shape, shape))
+                 if m == 1 and n != 1)
+    return x.sum(dim=dims, keepdim=True) if dims else x
+
+
+class LinearScan(torch.autograd.Function):
+    """`linear_scan`'s autograd: the forward saves ``a``, ``h`` and
+    ``h0``; the backward runs the reversed scan
+    ``g_t = dL/dh_t + a_{t+1} g_{t+1}`` (seeded with the final state's
+    gradient), then ``db_t = g_t``, ``da_t = g_t h_{t-1}`` (summed over
+    ``a``'s broadcast dimensions) and ``dh0 = a_0 g_0``."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0, chunk: int):
+        with torch.no_grad():
+            h = _chunked(a, b, h0, chunk)
+        ctx.chunk = chunk
+        ctx.save_for_backward(a, h, h0)
+        return h, h[:, -1].clone()
+
+    @staticmethod
+    def backward(ctx, g_h, g_last):
+        a, h, h0 = ctx.saved_tensors
+        g = _chunked(a, g_h, g_last, ctx.chunk, reverse=True)
+        da = dh0 = None
+        if ctx.needs_input_grad[0]:
+            h_prev = torch.cat([h0.unsqueeze(1), h[:, :-1]], dim=1)
+            da = _sum_to(h_prev.mul_(g), a.shape)
+        if ctx.needs_input_grad[2]:
+            dh0 = a[:, 0] * g[:, 0]
+        return da, g, dh0, None
+
+
+def linear_scan(a, b, h0, chunk: int):
+    """h_t = a_t * h_{t-1} + b_t along axis 1 (time), the reference's
+    `_chunked_linear_scan`.  a: broadcastable against b (B, S, ...); h0:
+    (B, ...).  Returns (h (B, S, ...), h_final (B, ...))."""
+    return LinearScan.apply(a, b, h0, chunk)
+
+
+def _causal_conv(x, w, b, state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv over time.  x: (B, S, C); w: (C, K); b: (C,).
+
+    Without ``state`` the sequence is padded with K-1 zeros (the training
+    path) and the new state is None.  With ``state`` (B, K-1, C), the
+    conv ring of a decode cache, the sequence is padded with the state,
+    so a chunk of any length continues the sequence the state ends; the
+    new state is the last K-1 inputs.  Returns (y, new_state)."""
+    K = w.shape[1]
+    B, S, C = x.shape
+    pad = state if state is not None else x.new_zeros((B, K - 1, C))
+    xp = torch.cat([pad, x], dim=1)
+    y = sum(xp[:, i:i + S] * w[:, i] for i in range(K)) + b
+    return y, (xp[:, S:] if state is not None else None)
+
+# ------------------------------------------------------------------ mamba 1
+
+
+def init_mamba1(gen: torch.Generator, d_model: int, d_inner: int,
+                ssm_state: int, conv: int, dt_rank: int, dtype) -> Params:
+    dev = gen.device
+    return {
+        "in_proj": _dense_init(gen, (d_model, 2 * d_inner), dtype),
+        "conv_w": _dense_init(gen, (d_inner, conv), dtype, scale=0.5),
+        "conv_b": torch.zeros((d_inner,), dtype=dtype, device=dev),
+        "x_proj": _dense_init(gen, (d_inner, dt_rank + 2 * ssm_state),
+                              dtype),
+        "dt_proj": _dense_init(gen, (dt_rank, d_inner), dtype),
+        "dt_bias": torch.full((d_inner,), -4.6, dtype=dtype, device=dev),
+        # log(1..N) on the host, as numpy rounds it (the reference's
+        # value; torch's log differs in the last bit at 7)
+        "A_log": torch.from_numpy(np.log(np.arange(
+            1, ssm_state + 1, dtype=np.float32))).to(dev, dtype).expand(
+            d_inner, ssm_state).contiguous(),
+        "D_skip": torch.ones((d_inner,), dtype=dtype, device=dev),
+        "out_proj": _dense_init(gen, (d_inner, d_model), dtype),
+    }
+
+
+def _recur(a, b, state, scan_chunk: int):
+    """The states h (B, S, ...) and the final state: from zeros over the
+    whole sequence without ``state``; with it, from the state's ``h`` (one
+    recurrence step at S = 1, as the reference's decode)."""
+    if state is None:
+        h0 = torch.zeros((b.shape[0],) + b.shape[2:], dtype=torch.float32,
+                         device=b.device)
+        return linear_scan(a, b, h0, scan_chunk)
+    if b.shape[1] == 1:
+        h = a[:, 0] * state[1] + b[:, 0]
+        return h[:, None], h
+    return linear_scan(a, b, state[1], scan_chunk)
+
+
+def mamba1_block(x, p: Params, *, ssm_state: int, dt_rank: int,
+                 state: Optional[Tuple] = None, scan_chunk: int = 256):
+    """x: (B, S, D).  ``state`` = (conv_state (B,K-1,di), h (B,di,N)) for
+    decoding.  Returns (out, new_state), new_state None without a state."""
+    N = ssm_state
+    xz = x @ p["in_proj"]
+    x_in, z = xz.chunk(2, dim=-1)                             # (B,S,di)
+
+    x_c, new_conv = _causal_conv(x_in, p["conv_w"], p["conv_b"],
+                                 None if state is None else state[0])
+    x_c = F.silu(x_c)
+
+    dbc = x_c @ p["x_proj"]
+    dt, Bmat, Cmat = dbc.split([dt_rank, N, N], dim=-1)
+    dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])         # (B,S,di)
+    A = -torch.exp(p["A_log"].float())                        # (di,N)
+
+    dtf = dt.float()
+    a = torch.exp(dtf[..., None] * A)                         # (B,S,di,N)
+    b = (dtf * x_c.float())[..., None] * Bmat.float()[:, :, None, :]
+    h, new_h = _recur(a, b, state, scan_chunk)
+
+    y = torch.einsum("bsdn,bsn->bsd", h, Cmat.float())
+    y = y + p["D_skip"].float() * x_c.float()
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ p["out_proj"]
+    return out, (None if state is None else (new_conv, new_h))
+
+# ------------------------------------------------------------------ mamba 2
+
+
+def init_mamba2(gen: torch.Generator, d_model: int, d_inner: int,
+                ssm_state: int, conv: int, head_dim: int, dtype) -> Params:
+    nh = d_inner // head_dim
+    dev = gen.device
+    return {
+        "in_proj": _dense_init(gen, (d_model, 2 * d_inner), dtype),
+        "conv_w": _dense_init(gen, (d_inner, conv), dtype, scale=0.5),
+        "conv_b": torch.zeros((d_inner,), dtype=dtype, device=dev),
+        "dt_proj": _dense_init(gen, (d_model, nh), dtype),
+        "dt_bias": torch.full((nh,), -4.6, dtype=dtype, device=dev),
+        "B_proj": _dense_init(gen, (d_model, ssm_state), dtype),
+        "C_proj": _dense_init(gen, (d_model, ssm_state), dtype),
+        "A_log": torch.zeros((nh,), dtype=dtype, device=dev),
+        "D_skip": torch.ones((nh,), dtype=dtype, device=dev),
+        "out_proj": _dense_init(gen, (d_inner, d_model), dtype),
+    }
+
+
+def mamba2_block(x, p: Params, *, ssm_state: int, head_dim: int,
+                 state: Optional[Tuple] = None, scan_chunk: int = 64):
+    """Simplified SSD: scalar decay per head.  x: (B, S, D).  ``state`` =
+    (conv_state (B,K-1,di), h (B,nh,hd,N)) for decoding.  Returns (out,
+    new_state), new_state None without a state."""
+    B, S, _ = x.shape
+    xz = x @ p["in_proj"]
+    x_in, z = xz.chunk(2, dim=-1)
+    di = x_in.shape[-1]
+    hd = head_dim
+    nh = di // hd
+
+    x_c, new_conv = _causal_conv(x_in, p["conv_w"], p["conv_b"],
+                                 None if state is None else state[0])
+    x_c = F.silu(x_c)
+
+    dt = F.softplus(x @ p["dt_proj"] + p["dt_bias"])          # (B,S,nh)
+    Bmat = x @ p["B_proj"]                                    # (B,S,N)
+    Cmat = x @ p["C_proj"]                                    # (B,S,N)
+    A = -torch.exp(p["A_log"].float())                        # (nh,)
+
+    dtf = dt.float()
+    a = torch.exp(dtf * A)[..., None, None]                   # (B,S,nh,1,1)
+    xh = x_c.reshape(B, S, nh, hd).float()
+    # b_t = dt * x_t (outer) B_t : (B,S,nh,hd,N)
+    b = (dtf[..., None, None] * xh[..., None]
+         * Bmat.float()[:, :, None, None, :])
+    h, new_h = _recur(a, b, state, scan_chunk)
+
+    y = torch.einsum("bshdn,bsn->bshd", h, Cmat.float())
+    y = y + p["D_skip"].float()[:, None] * xh
+    y = y.reshape(B, S, di).to(x.dtype) * F.silu(z)
+    out = y @ p["out_proj"]
+    return out, (None if state is None else (new_conv, new_h))

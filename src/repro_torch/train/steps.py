@@ -38,11 +38,12 @@ backward duplicate pre-sum, the sparse optimizer — reads it.
 
 Decoding (`make_prefill_step`, `make_prefill_decode_step`,
 `make_serve_step`) runs the model forward only, under ``torch.no_grad``,
-on a KV cache from `models.model.init_cache`.  The cache's k/v tensors
-are written in place and its ``len`` is a host integer that each step
-advances; the token embedding is a plain index of the table, as the
-reference's decode takes it with ``jnp.take`` (no Pallas kernel).  The
-decode steps pass tokens only (M-RoPE positions then default to the
+on a cache from `models.model.init_cache` (k/v for the attention
+families, the O(1) conv and ``h`` state for the recurrent ones, both for
+the hybrid).  The cache's tensors are written in place and its ``len``
+is a host integer that each step advances; the token embedding is a
+plain index of the table, as the reference's decode takes it with
+``jnp.take`` (no Pallas kernel).  The decode steps pass tokens only (M-RoPE positions then default to the
 chunk's position on all three coordinates); an encoder-decoder model
 attends to the cache's ``enc_out``, written by the caller before the
 prefill.
@@ -61,7 +62,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.pm_forward import step_residual
 from repro_torch.models.losses import vocab_parallel_ce
-from repro_torch.models.model import FAMILIES, loss_fn
+from repro_torch.models.model import loss_fn
 from repro_torch.optim.optimizers import (adagrad_init, adagrad_update,
                                           adam_init, adam_update)
 from repro_torch.pm.collectives import resolve
@@ -193,23 +194,25 @@ def make_prefill_step(cfg: ModelConfig, *, last_only: bool = False
 def make_prefill_decode_step(cfg: ModelConfig) -> Callable:
     """Fused prefill into a decode cache: ``prefill(model, cache,
     tokens (B, P), routes=None) -> (last logits (B, V), cache advanced by
-    P)``.  The prompt runs as one chunked forward: k/v for all P
-    positions are written at once and `layers.decode_attention` is causal
-    within the chunk.
+    P)``.  The prompt runs as one chunked forward, for every family: the
+    attention families write k/v for all P positions at once and
+    `layers.decode_attention` is causal within the chunk; the recurrent
+    families (ssm, hybrid) run the chunk through `ssm.linear_scan` seeded
+    with the cache's ``h`` and a causal conv padded by the cache's conv
+    ring, and write back the final ``h`` and ring (the hybrid's shared
+    block fills each application's KV cache as the attention families
+    do).
 
-    The same result as P one-token serve steps, except where MoE capacity
-    drops: the chunk routes the whole prompt through expert capacity at
-    once (the training-time semantics), where the loop routes one token
-    per sequence at a time.  The prompt must fit the cache.  ``routes``:
-    a list to which each MoE layer appends its `moe.Routing`.  The
-    encoder-decoder family reads ``cache["enc_out"]``, which the caller
-    fills first (`DenseLM.encode`).  Every attention family takes this
-    chunked arm, as in the reference; the recurrent families (ssm,
-    hybrid) are not ported yet."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family!r} family's prefill is not "
-            f"ported to PyTorch yet")
+    The same result as P one-token serve steps up to rounding, except
+    where MoE capacity drops: the chunk routes the whole prompt through
+    expert capacity at once (the training-time semantics), where the loop
+    routes one token per sequence at a time.  The reference's recurrent
+    families instead loop the P positions inside one jit
+    (``prefill_scan``); the chunk departs from it by rounding only.  The
+    prompt must fit the cache.  ``routes``: a list to which each MoE
+    layer appends its `moe.Routing`.  The encoder-decoder family reads
+    ``cache["enc_out"]``, which the caller fills first
+    (`DenseLM.encode`)."""
     full_fp32_matmuls()
 
     @torch.no_grad()

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, bit
-for bit, and the serving runtime and the training loop on CUDA against
-themselves on the CPU.
+for bit, and the serving runtime, the training loop and decoding (every
+model family, the recurrent ones' scan too) on CUDA against themselves
+on the CPU.
 
 Every test here needs a CUDA card and the CUDA toolkit; without a card
 they skip.  This file imports no JAX, so it runs on a machine that has
@@ -31,6 +32,7 @@ from repro_torch.launch.mesh import init_group
 from repro_torch.models.layers import decode_attention, flash_attention
 from repro_torch.models.model import init_cache, init_model, load_params
 from repro_torch.models.moe import init_moe, moe_block
+from repro_torch.models.ssm import linear_scan
 from repro_torch.pm.collectives import (EmulatedBackend, make_backend,
                                         route_block)
 from repro_torch.pm.embedding import make_state, pm_lookup
@@ -128,7 +130,8 @@ def test_training_kernels_match_plain(dev, D, dtype):
 
 
 @pytest.mark.parametrize("arch", ["nemotron-4-15b", "smollm-135m",
-                                  "qwen2-vl-7b", "whisper-medium"])
+                                  "qwen2-vl-7b", "whisper-medium",
+                                  "falcon-mamba-7b", "zamba2-1.2b"])
 def test_train_loop_on_the_card_equals_the_cpu(dev, arch, tmp_path):
     """The same start (a checkpoint with a warm accumulator) trained on
     CUDA through the kernels and on the CPU through the plain versions:
@@ -187,7 +190,8 @@ def test_moe_block_on_the_card_equals_the_cpu(dev, capacity_factor):
     np.testing.assert_allclose(float(aux_d), float(aux_c), rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-medium",
+                                  "falcon-mamba-7b", "zamba2-1.2b"])
 def test_forward_on_the_card_equals_the_cpu(dev, arch):
     """One forward of the smoke config over a batch with the family's
     extra inputs (image rows and M-RoPE positions, or frames) on CUDA
@@ -204,6 +208,30 @@ def test_forward_on_the_card_equals_the_cpu(dev, arch):
         got, _, _ = on_card({k: v.to(dev) for k, v in batch.items()})
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_linear_scan_on_the_card_equals_the_cpu(dev, broadcast):
+    """The chunked scan over 200 positions in chunks of 64 (the last
+    ragged), its final state and the gradients of a weighted sum with
+    respect to a, b and h0, on CUDA against the CPU: within rtol 1e-5 /
+    atol 1e-5 times the largest magnitude."""
+    g = torch.Generator().manual_seed(7)
+    b_shape = (2, 200, 4, 8, 16)
+    a_shape = (2, 200, 4, 1, 1) if broadcast else b_shape
+    a = torch.rand(a_shape, generator=g) * 0.5 + 0.5
+    b, w = (torch.randn(b_shape, generator=g) for _ in range(2))
+    h0 = torch.randn((2, 4, 8, 16), generator=g)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        xs = [x.detach().to(d).requires_grad_(True) for x in (a, b, h0)]
+        h, hf = linear_scan(*xs, 64)
+        ((h * w.to(d)).sum() + hf.sum()).backward()
+        out.append([t.detach().cpu() for t in (h, hf)]
+                   + [x.grad.cpu() for x in xs])
+    for want, got in zip(*out):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("window", [0, 300])
@@ -228,7 +256,8 @@ def test_flash_attention_on_the_card_equals_decode_attention(dev, window):
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-30b-a3b",
                                   "mixtral-8x22b", "qwen2-vl-7b",
-                                  "whisper-medium"])
+                                  "whisper-medium", "falcon-mamba-7b",
+                                  "zamba2-1.2b"])
 def test_decode_on_the_card_equals_the_cpu(dev, arch):
     """The fused prefill and four one-token steps on CUDA against the same
     on the CPU (one set of weights, the CPU run's greedy tokens fed to
@@ -247,7 +276,8 @@ def test_decode_on_the_card_equals_the_cpu(dev, arch):
     ops.reset_launch_counts()
     c_cpu = init_cache(cfg, 2, 10, device="cpu")
     c_dev = init_cache(cfg, 2, 10)
-    assert c_dev["k"].device.type == "cuda"
+    assert all(t.device.type == "cuda" for name, t in c_dev.items()
+               if name != "len")
     if cfg.family == "encdec":
         frames = make_batch(cfg, 2, 6, np.random.default_rng(5))["frames"]
         with torch.no_grad():

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import ARCH_IDS as JARCH_IDS
 from repro.configs.registry import get_config as jget_config
 from repro.models import layers as jlayers
 from repro.models.model import init_cache as jinit_cache
@@ -25,7 +26,7 @@ from repro.models.model import init_model as jinit_model
 from repro.train.steps import make_prefill_decode_step as jmake_prefill_decode
 from repro.train.steps import make_prefill_step as jmake_prefill_step
 from repro.train.steps import make_serve_step as jmake_serve_step
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.models import layers
 from repro_torch.models.model import (cache_seq_len, init_cache, init_model,
                                       load_params, n_attn_apps,
@@ -180,12 +181,18 @@ def test_cache_layout_matches_jax():
                 assert tuple(got[name].shape) == tuple(want[name].shape)
 
 
-def test_other_families_are_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("falcon-mamba-7b")
-    cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
-                              family="ssm")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_prefill_decode_step(cfg)
+def test_every_arch_builds_its_decode_state_and_prefill():
+    """Every architecture of the reference resolves, builds a decode
+    state of the reference's layout and a prefill step; none is refused
+    as not ported."""
+    assert ARCH_IDS == JARCH_IDS
+    for arch in ARCH_IDS:
+        cfg, jcfg = get_config(arch, smoke=True), jget_config(arch,
+                                                              smoke=True)
+        got, want = init_cache(cfg, 1, 4, device="cpu"), jinit_cache(jcfg,
+                                                                     1, 4)
+        assert set(got) == set(want), arch
+        for name in set(got) - {"len"}:
+            assert tuple(got[name].shape) == tuple(want[name].shape), \
+                (arch, name)
+        assert callable(make_prefill_decode_step(cfg))

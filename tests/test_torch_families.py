@@ -1,5 +1,6 @@
-"""Checks shared by the vlm and encdec parity files (`test_torch_vlm.py`,
-`test_torch_encdec.py`; this module holds no test of its own, as
+"""Checks shared by the vlm, encdec, ssm and hybrid parity files
+(`test_torch_vlm.py`, `test_torch_encdec.py`, `test_torch_ssm.py`,
+`test_torch_hybrid.py`; this module holds no test of its own, as
 `test_torch_model.py` lends its helpers to the MoE file): the same
 numpy inputs, made from a seed, go
 through the JAX reference (its plain paths) and through the port, with the
@@ -9,7 +10,8 @@ Batches carry each family's extra inputs: the vlm family's image-patch
 embeddings written at ``img_pos`` and M-RoPE positions whose t, h and w
 coordinates differ over the image rows (a 2 x 2 patch grid per image,
 text positions continuing after it, as Qwen2-VL numbers them); the
-encdec family's frame embeddings.
+encdec family's frame embeddings; the ssm and hybrid families need
+none.
 """
 
 import jax
@@ -164,7 +166,8 @@ def check_decode(arch: str, P: int = 6, N: int = 5, B: int = 2) -> None:
     """The fused prefill, then N one-token serve steps fed the JAX run's
     greedy tokens; an encoder-decoder cache first takes the encoder's
     output over the batch's frames (checked against the reference's
-    `_encoder`).  Logits within rtol 1e-4 / atol 1e-5 at every step."""
+    `_encoder`).  Logits within rtol 1e-4 / atol 1e-5 at every step, and
+    every cache tensor at the end."""
     cfg, jp, model = carried(arch)
     jcfg = jget_config(arch, smoke=True)
     tok = np.random.default_rng(1).integers(
@@ -198,7 +201,8 @@ def check_decode(arch: str, P: int = 6, N: int = 5, B: int = 2) -> None:
         tl, cache = serve(model, cache, torch.from_numpy(nxt))
         close(tl, jl)
     assert cache["len"] == int(jcache["len"]) == P + N
-    close(cache["k"], jcache["k"])
+    for name in set(cache) - {"len"}:
+        close(cache[name], jcache[name])
 
 
 def check_prefill_step(arch: str, last_only: bool) -> None:

@@ -77,15 +77,19 @@ def test_registry_names_the_ported_archs():
     vlm, encdec = get_config("qwen2-vl-7b"), get_config("whisper-medium")
     assert (vlm.family, vlm.mrope_sections) == ("vlm", (16, 24, 24))
     assert (encdec.family, encdec.encoder.n_frames) == ("encdec", 1500)
+    ssm, hybrid = get_config("falcon-mamba-7b"), get_config("zamba2-1.2b")
+    assert (ssm.family, ssm.dt_rank, ssm.d_inner) == ("ssm", 256, 8192)
+    assert (hybrid.family, hybrid.attn_every) == ("hybrid", 6)
     for arch in ("granite-20b", "llama3-405b", "mixtral-8x22b",
                  "qwen3-moe-30b-a3b", "qwen2-vl-7b", "whisper-medium"):
         for smoke in (False, True):
             assert dataclasses.asdict(get_config(arch, smoke)) == \
                 dataclasses.asdict(jget_config(arch, smoke)), (arch, smoke)
-    # the two families still left
+    # the two recurrent families, ported last
     for arch in ("falcon-mamba-7b", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
+        for smoke in (False, True):
+            assert dataclasses.asdict(get_config(arch, smoke)) == \
+                dataclasses.asdict(jget_config(arch, smoke)), (arch, smoke)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -58,8 +58,9 @@ order it:
    D 4096, d_inner 8192, N 16, untied: the fused arm) and zamba2-1.2b at
    its full config (the hybrid family: 38 Mamba-2 layers and 7
    applications of one shared attention block, untied: the fused arm),
-   16 steps of 8 x 64 tokens each (whisper: 4 x 64) through the kernels
-   (AdaGrad at lr 1e-4, where
+   16 steps of 8 x 64 tokens each (whisper: 4 x 64) through the kernels,
+   each layer rematerialised as the step does by default (AdaGrad at
+   lr 1e-4, where
    the reference's 0.01 diverges at these widths, and 0.01 on smollm),
    checks finite losses, no overflow and which kernels ran, then the same
    run through the plain versions, whose loss trace must agree within
@@ -97,8 +98,22 @@ order it:
    `vocab_parallel_ce`) over it, whose loss traces must agree with the
    emulated kernel runs within rtol 1e-4 / atol 1e-5 with no overflow
    step;
-9. prints the kernel table as one JSON line, the card line and, last, the
-   device line.
+9. runs the simulator on the host: the five baselines on
+   `tests/data/seed_metrics.json`'s workload (ints equal, floats within
+   rel 1e-9), the quickstart's part 1 (KGE, 8 nodes, scale 0.5: AdaPM,
+   full replication, static partitioning) and the 1e6-key ZIPF AdaPM
+   row of `benchmarks/scale_sweep.py`, whose simulated metrics must
+   equal that row of `BENCH_scale.json`; prints the simulated figures
+   (the simulator's cost model's, not the card's) and the host seconds
+   each took;
+10. trains zamba2-1.2b (full, 8 x 64) and qwen3-moe-30b-a3b (4 of 48
+   layers) through `make_train_step` (the fused arm with the kernels, 6
+   steps) without remat, with "full" and with "dots": each loss trace
+   within rtol 1e-6 of the first, the same kernel launches in all three
+   (the lookup is outside the rematerialised layers), and zamba2's peak
+   lower under "full"; prints step ms and peak memory;
+11. prints the kernel table as one JSON line, the card line and, last,
+   the device line.
 
 Any failure raises, so the script exits non-zero before those last lines.
 
@@ -146,7 +161,10 @@ SEED = 0
 N_ROWS = 512                  # training step: 8 x 64 tokens, one slot each
 SMOLLM = (49152, 576)         # smollm-135m (tied) embedding: scatter shape
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 16, 8, 64
-PROFILE_STEPS = 12
+# 8 profiled steps (12 before the training step rematerialised each
+# layer, which made the training phases about 25 % longer) keep the smoke
+# near its earlier length
+PROFILE_STEPS = 8
 # whisper-medium's step runs about 20k eager calls: 6 profiled steps keep
 # the profiler's processing of the trace short
 PROFILE_STEPS_OF = {"whisper-medium": 6}
@@ -211,6 +229,21 @@ SERVE_KERNELS = ("embed_gather", "pm_combine")
 HOST_CALLS = 1000             # calls per host-time measurement
 WORD_ROWS = 32768             # rows of the unaligned table copy (word path)
 L2_BYTES = 50 * 2 ** 20       # H100 L2 cache
+# the simulator phase: `tests/data/seed_metrics.json`'s configuration (as
+# `tests/test_engine.py` runs it), quickstart's part 1 (KGE, 8 nodes,
+# scale 0.5) and `benchmarks/scale_sweep.py`'s 1e6-key ZIPF AdaPM row,
+# held to that row of `BENCH_scale.json`
+ROOT = Path(__file__).resolve().parent
+SEED_METRICS = ROOT / "tests" / "data" / "seed_metrics.json"
+SCALE_ROWS = ROOT / "BENCH_scale.json"
+ZIPF_KEYS = 1_000_000
+# the remat phase: zamba2-1.2b in full at 8 x 64 (the scan's autograd
+# function and the shared attention inside one unit) and qwen3-moe-30b-a3b
+# with 4 of 48 layers (the experts recomputed), fused arm, 6 steps each
+# with remat off, "full" and "dots", built with `make_train_step`
+REMAT_ARCHS = (HYBRID_ARCH, MOE_ARCH)
+REMAT_SETTINGS = ((False, "full"), (True, "full"), (True, "dots"))
+REMAT_STEPS, REMAT_CACHE, REMAT_RTOL = 6, 1024, 1e-6
 
 
 def bits(x):
@@ -1684,6 +1717,194 @@ def serve_mesh(table) -> tuple:
     return runs, ms, profiles
 
 
+# ------------------------------------------------------------ the simulator
+
+
+def tiny_workload(n_nodes: int, wpn: int, n_batches: int, n_keys: int,
+                  kpb: int, seed: int):
+    """`tests/test_engine.py`'s seeded workload, on which
+    `tests/data/seed_metrics.json` was recorded: per worker, batches of
+    the distinct keys among ``kpb`` uniform draws."""
+    from repro_torch.core.simulator import Workload
+    rng = np.random.default_rng(seed)
+    streams = [[[np.unique(rng.integers(0, n_keys, size=kpb))
+                 for _ in range(n_batches)]
+                for _ in range(wpn)]
+               for _ in range(n_nodes)]
+    return Workload("tiny", n_keys, streams)
+
+
+def simulate_seed_metrics() -> dict:
+    """The five baselines of `seed_metrics.json` through the port's
+    simulator, held as `tests/test_engine.py` holds them: ints equal,
+    floats within rel 1e-9."""
+    from repro_torch.core.api import CostModel
+    from repro_torch.core.baselines import (NuPSStatic,
+                                            SelectiveReplicationSSP,
+                                            StaticFullReplication,
+                                            StaticPartitioning)
+    from repro_torch.core.simulator import SimConfig, simulate
+    want = json.loads(SEED_METRICS.read_text())
+    wl = tiny_workload(n_nodes=4, wpn=2, n_batches=40, n_keys=800, kpb=8,
+                       seed=7)
+    cost = CostModel()
+    policies = {
+        "static_partitioning": lambda: StaticPartitioning(4, cost),
+        "full_replication":
+            lambda: StaticFullReplication(4, cost, wl.n_keys),
+        "ssp20": lambda: SelectiveReplicationSSP(4, cost, 20),
+        "essp": lambda: SelectiveReplicationSSP(4, cost, None),
+        "nups": lambda: NuPSStatic(4, cost, wl.n_keys, wl.hot_keys(0.02),
+                                   reloc_offset=32),
+    }
+    out = {}
+    for name, mk in policies.items():
+        m = simulate(mk(), wl, SimConfig(signal_offset=20))
+        for key, ref in want[name].items():
+            got = getattr(m, key)
+            ok = got == ref if isinstance(ref, int) else \
+                abs(got - ref) <= max(1e-9 * abs(ref), 1e-12)
+            if not ok:
+                raise AssertionError(f"seed metrics {name}.{key}: {got!r} "
+                                     f"against {ref!r}")
+        out[name] = {k: getattr(m, k) for k in want[name]}
+    return out
+
+
+def simulator() -> dict:
+    """The seed metrics, then quickstart's part 1 and the 1e6-key ZIPF
+    AdaPM row (its simulated metrics held to `BENCH_scale.json`'s), each
+    with the host seconds it took.  The epoch times, speedups and bytes
+    are `CostModel`'s outputs (simulated), not measurements."""
+    from repro_torch.core.api import CostModel
+    from repro_torch.core.manager import AdaPM
+    from repro_torch.core.simulator import SimConfig, simulate
+    from repro_torch.data.workloads import zipf_workload
+    from repro_torch.examples import quickstart
+    t0 = time.perf_counter()
+    seed = simulate_seed_metrics()
+    t1 = time.perf_counter()
+    part1 = quickstart.part1_cluster_simulation()
+    t2 = time.perf_counter()
+    single = part1.pop("single_node")
+    quick = {name: dict(m.as_dict(), speedup=single / m.epoch_time)
+             for name, m in part1.items()}
+    if not (quick["AdaPM"]["remote_frac"]
+            < quick["Static partitioning"]["remote_frac"]):
+        raise AssertionError(f"quickstart part 1: {quick}")
+    wl = zipf_workload(n_nodes=4, wpn=2, n_batches=100, n_keys=ZIPF_KEYS,
+                       batch_size=64)
+    t3 = time.perf_counter()
+    m = simulate(AdaPM(4, CostModel()), wl, SimConfig(signal_offset=100))
+    t4 = time.perf_counter()
+    want = next(r for r in json.loads(SCALE_ROWS.read_text())["results"]
+                if r["n_keys"] == ZIPF_KEYS and r["variant"] == "AdaPM")
+    got = m.as_dict()
+    for key, v in got.items():
+        if want[key] != v:
+            raise AssertionError(f"ZIPF {ZIPF_KEYS} AdaPM {key}: {v!r} "
+                                 f"against BENCH_scale.json's {want[key]!r}")
+    return {"seed_metrics": seed, "seed_metrics_host_s": t1 - t0,
+            "quickstart_part1_simulated": quick,
+            "quickstart_part1_single_node_epoch_s_simulated": single,
+            "quickstart_part1_host_s": t2 - t1,
+            "zipf_1e6_adapm_simulated": got,
+            "zipf_1e6_workload_host_s": t3 - t2,
+            "zipf_1e6_simulate_host_s": t4 - t3}
+
+# -------------------------------------------------------------- rematerialise
+
+
+def remat_batches(cfg, dev, seed: int = SEED):
+    """REMAT_STEPS batches of the training loader's Zipf corpus (8 x 64
+    tokens, labels the next token), the REMAT_CACHE ids they hit most
+    (sorted; the replica cache) and each batch's unique-miss count."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticCorpus
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=seed)
+    toks = [corpus.tokens((train_batch(cfg.arch_id), TRAIN_S + 1))
+            for _ in range(REMAT_STEPS)]
+    ids, counts = np.unique(np.concatenate(toks), return_counts=True)
+    cache = np.sort(ids[np.argsort(-counts, kind="stable")[:REMAT_CACHE]])
+    cache = np.pad(cache, (0, REMAT_CACHE - cache.size),
+                   constant_values=cfg.vocab_size).astype(np.int32)
+    batches = [{"tokens": torch.from_numpy(t[:, :-1].copy()).to(dev),
+                "labels": torch.from_numpy(t[:, 1:].copy()).to(dev)}
+               for t in toks]
+    misses = [int(np.setdiff1d(t[:, :-1], cache).size) for t in toks]
+    return batches, torch.from_numpy(cache).to(dev), misses
+
+
+def remat_run(arch: str, remat: bool, policy: str, dev) -> dict:
+    """REMAT_STEPS managed steps of ``arch`` (seeded random init, the
+    fused arm through the kernels) from `make_train_step` with ``remat``
+    and ``policy``; returns the losses, the steady step time (host clock
+    between the first and the last loss read), the peak memory and the
+    kernel launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_model
+    from repro_torch.pm.embedding import make_state
+    from repro_torch.train.steps import make_opt_init, make_train_step
+    free_card()
+    cfg = train_config(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model = init_model(cfg, gen)
+    state = make_opt_init()(model)
+    batches, cache, misses = remat_batches(cfg, dev)
+    T = batches[0]["tokens"].numel()
+    step = make_train_step(cfg, lr=TRAIN_LR[arch], pm_miss_capacity=T,
+                           pm_kernel=True, remat=remat, remat_policy=policy)
+    ops.reset_launch_counts()
+    losses, read_t = [], []
+    for b, n_miss in zip(batches, misses):
+        rows = make_state(model.embed.detach(), cache).cache_rows
+        loss, model, state = step(model, state, dict(
+            b, pm_cache_ids=cache, pm_cache_rows=rows, pm_n_miss=n_miss))
+        losses.append(float(loss))
+        read_t.append(time.perf_counter())
+    launches = ops.launch_counts()
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{arch} remat={remat} {policy}: {losses}")
+    for name in ("embed_gather", "pm_combine", "adagrad_rows"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{arch}: {name} was not launched")
+    out = {"arch": arch, "n_layers": cfg.n_layers,
+           "batch": [train_batch(arch), TRAIN_S], "remat": remat,
+           "policy": policy if remat else None, "losses": losses,
+           "step_ms": (read_t[-1] - read_t[0]) * 1e3 / (len(read_t) - 1),
+           "peak_alloc_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": launches}
+    del model, state
+    return out
+
+
+def rematerialise(arch: str, dev) -> list:
+    """`remat_run` without remat, with "full" and with "dots": each
+    trace within REMAT_RTOL of the first, the same kernel launches in
+    all three, and (zamba2) a lower peak under "full"."""
+    runs = [remat_run(arch, *s, dev) for s in REMAT_SETTINGS]
+    base = runs[0]
+    for r in runs:
+        np.testing.assert_allclose(
+            r["losses"], base["losses"], rtol=REMAT_RTOL, atol=0,
+            err_msg=f"{arch}: remat {r['policy']} against none")
+        r["max_abs_diff_vs_no_remat"] = float(np.max(np.abs(
+            np.subtract(r["losses"], base["losses"]))))
+        if r["launches"] != base["launches"]:
+            raise AssertionError(f"{arch}: launches {r['launches']} under "
+                                 f"remat {r['policy']}, {base['launches']} "
+                                 f"without")
+    if arch == HYBRID_ARCH and not \
+            runs[1]["peak_alloc_gb"] < base["peak_alloc_gb"]:
+        raise AssertionError(f"{arch}: peak {runs[1]['peak_alloc_gb']} GB "
+                             f"under full remat, {base['peak_alloc_gb']} GB "
+                             f"without")
+    return runs
+
+
 SOURCE = {"embed_gather": "src/repro_torch/kernels/csrc/row_kernels.cu",
           "pm_combine": "src/repro_torch/kernels/csrc/row_kernels.cu",
           "adagrad_rows": "src/repro_torch/kernels/csrc/adagrad_rows.cu",
@@ -1796,13 +2017,13 @@ def main() -> int:
         phase_s[name] = now - last
         last = now
 
-    print(f"[1/9] device: {card} ({torch.cuda.get_device_name(0)}, "
+    print(f"[1/11] device: {card} ({torch.cuda.get_device_name(0)}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
     t0 = time.perf_counter()
     lib = build.build()
     build.library()
-    print(f"[2/9] built {lib.relative_to(Path(__file__).resolve().parent)} "
+    print(f"[2/11] built {lib.relative_to(Path(__file__).resolve().parent)} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     phase("build")
 
@@ -1811,33 +2032,33 @@ def main() -> int:
     err.update(check_training_kernels(table))
     seg = check_segment_scatter(dev)
     err["segment_scatter_rows"] = seg["max_abs_err"]
-    print("[3/9] embed_gather paths " + json.dumps(paths), flush=True)
-    print("[3/9] segment_scatter_rows " + json.dumps(seg), flush=True)
+    print("[3/11] embed_gather paths " + json.dumps(paths), flush=True)
+    print("[3/11] segment_scatter_rows " + json.dumps(seg), flush=True)
     times = time_kernels(table)
     times.update(time_training_kernels(table))
     times["segment_scatter_rows"] = time_segment_scatter(dev)
-    print("[3/9] kernels == plain versions, bitwise: "
+    print("[3/11] kernels == plain versions, bitwise: "
           + json.dumps({k: {"max_abs_err": err[k], **times[k]}
                         for k in err}), flush=True)
-    print(f"[3/9] kernels at {MOE_ARCH}'s shapes " + json.dumps(
+    print(f"[3/11] kernels at {MOE_ARCH}'s shapes " + json.dumps(
         dict(time_at_moe_shapes(dev), card=card)), flush=True)
     phase("kernels")
 
     runs = [serve(table),
             serve(table, cache_capacity=512, pipeline_depth=2)]
     for r in runs:
-        print("[4/9] serve " + json.dumps(r), flush=True)
+        print("[4/11] serve " + json.dumps(r), flush=True)
     sizes = sorted(set(serve_sizes(runs)) | {N_IDS})
-    print("[4/9] embed_gather at the serving runs' sizes and n=4096, both "
+    print("[4/11] embed_gather at the serving runs' sizes and n=4096, both "
           "paths " + json.dumps(gather_at_sizes(table, sizes)), flush=True)
     for knobs in ({}, {"cache_capacity": 512, "pipeline_depth": 2}):
-        print("[4/9] profile " + json.dumps(profile(table, **knobs)),
+        print("[4/11] profile " + json.dumps(profile(table, **knobs)),
               flush=True)
     del table
     free_card()
     phase("serve")
 
-    print("[5/9] lookup backward launches " + json.dumps(
+    print("[5/11] lookup backward launches " + json.dumps(
         backward_launches(dev)), flush=True)
     trains, other_trains = [], []
     for arch in ("nemotron-4-15b", "smollm-135m", MOE_ARCH) + FAMILY_ARCHS:
@@ -1848,46 +2069,46 @@ def main() -> int:
         diff = float(np.max(np.abs(np.subtract(ker["losses"],
                                                plain["losses"]))))
         for r in (ker, plain):
-            print("[5/9] train " + json.dumps(r), flush=True)
-        print(f"[5/9] {arch}: kernel vs plain loss trace, max abs diff "
+            print("[5/11] train " + json.dumps(r), flush=True)
+        print(f"[5/11] {arch}: kernel vs plain loss trace, max abs diff "
               f"{diff!r} (rtol {TRACE_RTOL}, atol {TRACE_ATOL})", flush=True)
         (trains if arch in ("nemotron-4-15b", "smollm-135m")
          else other_trains).append(ker)
         phase(f"train {arch}")
     for arch in ("nemotron-4-15b", "smollm-135m", MOE_ARCH) + FAMILY_ARCHS:
-        print("[5/9] train profile " + json.dumps(
+        print("[5/11] train profile " + json.dumps(
             dict(train_profile(arch), card=card)), flush=True)
         phase(f"train profile {arch}")
 
     for arch, layers in DECODE:
-        print("[6/9] decode " + json.dumps(
+        print("[6/11] decode " + json.dumps(
             dict(decode(arch, layers, dev), card=card)), flush=True)
         phase(f"decode {arch}")
 
-    print("[7/9] flash_attention == decode_attention " + json.dumps(
+    print("[7/11] flash_attention == decode_attention " + json.dumps(
         dict(check_flash_attention(dev), card=card)), flush=True)
-    print("[7/9] long prefill " + json.dumps(
+    print("[7/11] long prefill " + json.dumps(
         dict(long_prefill(dev), card=card)), flush=True)
     phase("long prefill")
 
     import torch.distributed as dist
     with nccl_group(dev) as be:
-        print(f"[8/9] process group: backend {dist.get_backend()}, world "
+        print(f"[8/11] process group: backend {dist.get_backend()}, world "
               f"size {dist.get_world_size()}, {type(be).__name__} of "
               f"{be.n_shards} shard on {be.device} ({card})", flush=True)
         table = make_table(dev)
         mesh_err = check_mesh_backend(be, table)
-        print("[8/9] mesh backend == emulated backend, bitwise: "
+        print("[8/11] mesh backend == emulated backend, bitwise: "
               + json.dumps(dict(mesh_err, card=card)), flush=True)
         serve_runs, serve_ms, serve_prof = serve_mesh(table)
         for r in serve_runs:
-            print("[8/9] mesh serve " + json.dumps(dict(r, card=card)),
+            print("[8/11] mesh serve " + json.dumps(dict(r, card=card)),
                   flush=True)
-        print("[8/9] mesh serve ms per round in turns (emulated, mesh, mesh,"
+        print("[8/11] mesh serve ms per round in turns (emulated, mesh, mesh,"
               " emulated; 32 rounds, one shard) "
               + json.dumps(dict(serve_ms, card=card)), flush=True)
         for name, prof in serve_prof.items():
-            print(f"[8/9] profile, {name}, one shard " + json.dumps(
+            print(f"[8/11] profile, {name}, one shard " + json.dumps(
                 dict(prof, card=card)), flush=True)
         del table
         free_card()
@@ -1899,21 +2120,34 @@ def main() -> int:
                 err_msg=f"{r['arch']}: mesh vs emulated trace")
             diff = float(np.max(np.abs(np.subtract(r["losses"],
                                                    emu["losses"]))))
-            print("[8/9] mesh train " + json.dumps(dict(r, card=card)),
+            print("[8/11] mesh train " + json.dumps(dict(r, card=card)),
                   flush=True)
-            print(f"[8/9] {r['arch']}: mesh vs emulated kernel loss trace, "
+            print(f"[8/11] {r['arch']}: mesh vs emulated kernel loss trace, "
                   f"max abs diff {diff!r} (rtol {TRACE_RTOL}, atol "
                   f"{TRACE_ATOL}) ({card})", flush=True)
             mesh_runs.append(r)
-    print("[8/9] mesh runs' launches " + json.dumps(
+    print("[8/11] mesh runs' launches " + json.dumps(
         {name: sum(r["launches"][name] for r in mesh_runs)
          for name in REPLACES}), flush=True)
     phase("mesh")
 
+    print("[9/11] simulator (host; epoch times, speedups and bytes "
+          "simulated by CostModel) " + json.dumps(
+              dict(simulator(), card=card)), flush=True)
+    phase("simulator")
+
+    remat_runs = []
+    for arch in REMAT_ARCHS:
+        for r in rematerialise(arch, dev):
+            print("[10/11] remat " + json.dumps(dict(r, card=card)),
+                  flush=True)
+            remat_runs.append(r)
+        phase(f"remat {arch}")
+
     kernels = []
     for name in REPLACES:
         launches = sum(r["launches"][name] for r in
-                       runs + trains + other_trains + mesh_runs)
+                       runs + trains + other_trains + mesh_runs + remat_runs)
         if launches <= 0:
             raise AssertionError(f"{name} was not launched on a main path")
         t = times[name]
@@ -1924,7 +2158,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"],
             "host_us": t["host_us"], "library_host_us": t["library_host_us"]})
-    print(f"[9/9] done in {time.perf_counter() - start:.1f} s; seconds per "
+    print(f"[11/11] done in {time.perf_counter() - start:.1f} s; seconds per "
           f"phase " + json.dumps(phase_s))
     print(json.dumps({"kernels": kernels}))
     print(card)

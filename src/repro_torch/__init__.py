@@ -9,5 +9,8 @@ family of the reference, with the hand-written
 CUDA kernels `embed_gather`, `pm_combine`, `adagrad_rows`,
 `scatter_rows` and `segment_scatter_rows` (`kernels/csrc`), on the
 emulated collective backend or on the vocab-parallel mesh over
-`torch.distributed` (`pm.collectives.MeshBackend`, `launch.mesh`).
+`torch.distributed` (`pm.collectives.MeshBackend`, `launch.mesh`); the
+paper's AdaPM core, its baselines and the cluster simulator (`core`,
+`data.workloads`, numpy on the host); and the twins of the reference's
+examples (`examples`).
 """

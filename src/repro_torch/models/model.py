@@ -26,6 +26,19 @@ named parameters; ``layers`` and ``enc_layers`` are stacked,
 ``shared_attn`` is not), so a checkpoint written by either package loads
 in the other (`ckpt/checkpoint.py`).
 
+Training rematerialises each layer when ``forward`` is given ``remat``
+(the train step's default, as the reference's): one layer is one
+`torch.utils.checkpoint` unit, which keeps its inputs and recomputes its
+body in the backward.  An attention family's layer, each `SSMLayer` (in
+the hybrid with the shared block's application before it, as the
+reference's scan body holds both) and the encoder-decoder's decoder
+layer are units; the encoder and the embedding lookup stay outside
+them, so the managed lookup runs once a step.  ``remat_policy`` "full"
+saves only a unit's inputs; "dots" also keeps the outputs of products
+without batch dimensions (`save_dots`), the reference's
+``dots_with_no_batch_dims_saveable``; the decoder layer takes "full"
+whatever the policy, as the reference's `_decoder_stack` does.
+
 ``forward`` returns ``(logits, aux, new_cache)`` like the reference
 (``aux`` is the layers' summed MoE load-balance loss, zero without
 experts; ``skip_head=True`` returns the final hidden state in place of
@@ -46,11 +59,14 @@ leaves load as that block (`params_from_jax` with ``shard``).
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -64,6 +80,35 @@ from .ssm import init_mamba1, init_mamba2, mamba1_block, mamba2_block
 #: the recurrent families: `SSMLayer` trunks (the reference's `_ssm_stack`
 #: and `_hybrid_stack`), decoded through an O(1) state
 RECURRENT = ("ssm", "hybrid")
+
+#: the rematerialisation policies of `DenseLM.forward`'s ``remat_policy``
+REMAT_POLICIES = ("full", "dots")
+
+#: products without batch dimensions: the ops whose outputs "dots" keeps
+#: (``x @ w`` with a 2-D weight reaches ``aten.mm``; ``bmm``, the
+#: experts' products and attention's tiles are batched)
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy of a rematerialised unit, the counterpart of
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of `DOTS`, recompute every other op."""
+    return CheckpointPolicy.MUST_SAVE if op in DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn, policy: str, *args):
+    """``fn(*args)`` as one rematerialised unit (non-reentrant
+    `torch.utils.checkpoint`): autograd keeps ``args`` and, with the
+    "dots" policy, the outputs of `save_dots`'s products, and recomputes
+    the rest in the backward."""
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=partial(
+                              create_selective_checkpoint_contexts,
+                              save_dots))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def _params(d: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
@@ -264,7 +309,8 @@ class DenseLM(nn.Module):
                 pm_backend=None, pm_residual=None,
                 embed_rows: Optional[torch.Tensor] = None,
                 head_last_only: bool = False, skip_head: bool = False,
-                routes: Optional[list] = None):
+                routes: Optional[list] = None, remat: bool = False,
+                remat_policy: str = "full"):
         """Returns (logits, aux_loss, new_cache), or with ``skip_head``
         (the final hidden state (B, S, D), aux_loss, new_cache).
 
@@ -277,7 +323,10 @@ class DenseLM(nn.Module):
         ``batch["frames"]``.
         ``head_last_only``: the head runs on the last position only.
         ``routes``: a list to which each MoE layer appends its
-        `moe.Routing`.
+        `moe.Routing` (once, with ``remat`` too).
+        ``remat``: each layer a rematerialised unit with ``remat_policy``
+        ("full" or "dots", `REMAT_POLICIES`); never with a cache, as the
+        reference passes ``remat and cache is None``.
 
         batch: ``tokens`` (B, S) int, optional ``positions`` ((B, S), or
         (B, S, 3) for M-RoPE; by default the chunk's positions, the same
@@ -293,6 +342,10 @@ class DenseLM(nn.Module):
         embedding lookup (the fused sparse step differentiates with
         respect to these rows instead of the table)."""
         cfg = self.cfg
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r} is not one of "
+                             f"{REMAT_POLICIES}")
+        remat = remat and cache is None
         tokens = batch["tokens"]
         B, S = tokens.shape
         if embed_rows is not None:
@@ -317,11 +370,13 @@ class DenseLM(nn.Module):
                                      device=tokens.device).expand(B, S)
             if cfg.mrope:
                 positions = positions[..., None].expand(B, S, 3)
+        policy = remat_policy if remat else None
         if cfg.family in RECURRENT:
-            h = self._recurrent(h, positions, cache)
+            h = self._recurrent(h, positions, cache, policy)
             aux = torch.zeros((), dtype=h.dtype, device=h.device)
         else:
-            h, aux = self._attention(batch, h, positions, cache, routes)
+            h, aux = self._attention(batch, h, positions, cache, routes,
+                                     policy)
         h = norm(h, self.final_norm, cfg.norm, cfg.norm_eps)
         if head_last_only:
             h = h[:, -1:]
@@ -330,11 +385,13 @@ class DenseLM(nn.Module):
         head = self.embed.T if cfg.tie_embeddings else self.head
         return h @ head, aux, cache
 
-    def _attention(self, batch, h, positions, cache, routes):
+    def _attention(self, batch, h, positions, cache, routes, policy=None):
         """The attention families' stack; returns (h, summed MoE aux).
         The encoder-decoder decoder attends to the encoder's output: the
         cache's ``enc_out``, or without a cache the encoder run over
-        ``batch["frames"]``."""
+        ``batch["frames"]``.  ``policy``: each layer a rematerialised
+        unit with this policy (None: none; the decoder layer's is
+        "full")."""
         cfg = self.cfg
         cache_len = None if cache is None else cache["len"]
         aux = torch.zeros((), dtype=h.dtype, device=h.device)
@@ -345,23 +402,39 @@ class DenseLM(nn.Module):
         for i, layer in enumerate(self.layers):
             kv = None if cache is None else \
                 {"k": cache["k"][i], "v": cache["v"][i]}
+            if enc_out is not None and policy:
+                h = remat_call(partial(_decoder_layer, layer, cfg,
+                                       positions), "full", h, enc_out)
+                continue
             if enc_out is not None:
                 h = layer(h, cfg, positions, enc_out, kv, cache_len)
                 continue
-            h, aux_l = layer(h, cfg, positions, kv, cache_len, routes)
+            if policy:
+                h, aux_l = remat_call(_first_routes(layer, cfg, positions,
+                                                    routes), policy, h)
+            else:
+                h, aux_l = layer(h, cfg, positions, kv, cache_len, routes)
             if aux_l is not None:
                 aux = aux + aux_l
         return h, aux
 
-    def _recurrent(self, h, positions, cache):
+    def _recurrent(self, h, positions, cache, policy=None):
         """The ssm / hybrid trunk: `SSMLayer`s in order, the hybrid's
         ``shared_attn`` before layer ``i`` when ``i % attn_every == 0``
         (its application ``i // attn_every``, with that application's KV
         cache).  With a cache, each layer reads and writes its (conv,
-        h) state in place."""
+        h) state in place.  ``policy``: each layer, with the shared
+        block's application before it, a rematerialised unit with this
+        policy (None: none)."""
         cfg = self.cfg
         every = cfg.attn_every                   # 0 in the ssm family
         for i, layer in enumerate(self.layers):
+            if policy:
+                h = remat_call(partial(self._recurrent_unit, layer,
+                                       positions,
+                                       bool(every) and i % every == 0),
+                               policy, h)
+                continue
             if every and i % every == 0:
                 app = i // every
                 kv = None if cache is None else \
@@ -373,6 +446,31 @@ class DenseLM(nn.Module):
                 (cache["conv"][i], cache["h"][i])
             h = layer(h, cfg, state)
         return h
+
+    def _recurrent_unit(self, layer, positions, shared: bool, h):
+        """One training layer of the recurrent trunk (no cache): the
+        shared block first when ``shared``, then ``layer``."""
+        if shared:
+            h, _ = self.shared_attn(h, self.cfg, positions)
+        return layer(h, self.cfg)
+
+
+def _decoder_layer(layer, cfg: ModelConfig, positions, h, enc_out):
+    """An encoder-decoder decoder layer as a function of (h, enc_out)."""
+    return layer(h, cfg, positions, enc_out)
+
+
+def _first_routes(layer, cfg: ModelConfig, positions, routes):
+    """A `DenseLayer` as a function of ``h`` that hands ``routes`` to its
+    first call only: a rematerialised MoE layer runs again in the
+    backward and must append its `moe.Routing` once."""
+    calls = []
+
+    def run(h):
+        calls.append(None)
+        return layer(h, cfg, positions,
+                     routes=routes if len(calls) == 1 else None)
+    return run
 
 
 def n_attn_apps(cfg: ModelConfig) -> int:

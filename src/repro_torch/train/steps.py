@@ -36,17 +36,24 @@ Single-sort step: the step computes ONE `pm_forward.step_residual` from
 the batch tokens, and every index consumer — forward probe/compact,
 backward duplicate pre-sum, the sparse optimizer — reads it.
 
+Each layer is rematerialised by default (``remat=True``, the
+reference's default): autograd keeps a layer's inputs and recomputes its
+body in the backward (`torch.utils.checkpoint`), so the activations of
+one layer at a time are alive.  The managed lookup, the fused arm's
+row gather and the encoder run outside the rematerialised layers, once
+a step.
+
 Decoding (`make_prefill_step`, `make_prefill_decode_step`,
-`make_serve_step`) runs the model forward only, under ``torch.no_grad``,
-on a cache from `models.model.init_cache` (k/v for the attention
-families, the O(1) conv and ``h`` state for the recurrent ones, both for
-the hybrid).  The cache's tensors are written in place and its ``len``
-is a host integer that each step advances; the token embedding is a
-plain index of the table, as the reference's decode takes it with
-``jnp.take`` (no Pallas kernel).  The decode steps pass tokens only (M-RoPE positions then default to the
-chunk's position on all three coordinates); an encoder-decoder model
-attends to the cache's ``enc_out``, written by the caller before the
-prefill.
+`make_serve_step`) runs the model forward only, under ``torch.no_grad``
+and never rematerialised, on a cache from `models.model.init_cache`
+(k/v for the attention families, the O(1) conv and ``h`` state for the
+recurrent ones, both for the hybrid).  The cache's tensors are written
+in place and its ``len`` is a host integer that each step advances; the
+token embedding is a plain index of the table, as the reference's
+decode takes it with ``jnp.take`` (no Pallas kernel).  The decode steps
+pass tokens only (M-RoPE positions then default to the chunk's position
+on all three coordinates); an encoder-decoder model attends to the
+cache's ``enc_out``, written by the caller before the prefill.
 
 fp32 matmuls run in full fp32: TF32 is switched off for matmuls and
 cuDNN when a step is built.
@@ -78,7 +85,8 @@ def full_fp32_matmuls() -> None:
 def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
                     lr: float = 0.01, pm_miss_capacity: int = 0,
                     pm_strict: bool = False, pm_kernel: bool = False,
-                    pm_backend=None) -> Callable:
+                    pm_backend=None, remat: bool = True,
+                    remat_policy: str = "full") -> Callable:
     """Returns train_step(model, opt_state, batch) -> (loss, model, state).
 
     ``pm_miss_capacity > 0`` activates the intent-managed embedding path
@@ -87,7 +95,10 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
     routes the lookup and the embedding update through the hand-written
     kernels.  ``pm_backend``: the collective backend (None: the emulated
     single-device reference; a `MeshBackend` runs the vocab-parallel
-    mesh)."""
+    mesh).  ``remat`` (the default, as the reference's): each layer is
+    rematerialised in the backward with ``remat_policy`` ("full" or
+    "dots", `models.model.DenseLM.forward`); the embedding lookup and the
+    encoder stay outside the rematerialised units."""
     full_fp32_matmuls()
     update = adagrad_update if optimizer == "adagrad" else adam_update
     # sparse row updates need the gradient support to be exactly the batch
@@ -106,7 +117,8 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
                             pm_strict=pm_strict, pm_kernel=pm_kernel,
                             pm_backend=pm_backend, pm_residual=residual,
                             embed_rows=embed_rows,
-                            skip_head=vp_mesh is not None)
+                            skip_head=vp_mesh is not None, remat=remat,
+                            remat_policy=remat_policy)
         if vp_mesh is not None:
             return vocab_parallel_ce(out, model.embed.T, batch["labels"],
                                      vp_mesh, aux=aux)

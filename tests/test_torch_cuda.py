@@ -30,7 +30,8 @@ from repro_torch.kernels.scatter_rows import (scatter_rows,
                                               segment_scatter_rows)
 from repro_torch.launch.mesh import init_group
 from repro_torch.models.layers import decode_attention, flash_attention
-from repro_torch.models.model import init_cache, init_model, load_params
+from repro_torch.models.model import (init_cache, init_model, load_params,
+                                      loss_fn)
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.models.ssm import linear_scan
 from repro_torch.pm.collectives import (EmulatedBackend, make_backend,
@@ -208,6 +209,29 @@ def test_forward_on_the_card_equals_the_cpu(dev, arch):
         got, _, _ = on_card({k: v.to(dev) for k, v in batch.items()})
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-medium",
+                                  "zamba2-1.2b"])
+def test_remat_gradients_on_the_card_equal_no_remat(dev, arch):
+    """The smoke config's loss and gradients on the card with each layer
+    rematerialised ("full" and "dots") equal those without, bit for
+    bit: the recompute runs the same kernels on the same inputs."""
+    full_fp32_matmuls()
+    cfg = get_config(arch, smoke=True)
+    model = init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = {k: v.to(dev) for k, v in
+             make_batch(cfg, 2, 16, np.random.default_rng(4)).items()}
+    out = []
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
+        model.zero_grad(set_to_none=True)
+        logits, aux, _ = model(batch, remat=remat, remat_policy=policy)
+        loss = loss_fn(logits, batch["labels"], aux)
+        loss.backward()
+        out.append([loss.detach()] + [p.grad for p in model.parameters()])
+    for got in out[1:]:
+        for x, y in zip(got, out[0]):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("broadcast", [False, True])

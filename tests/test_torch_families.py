@@ -105,11 +105,12 @@ def check_forward(arch: str) -> None:
         float(jloss_fn(jl, jnp.asarray(lab))), rtol=1e-5)
 
 
-def check_one_step(arch: str, kernel: bool) -> None:
+def check_one_step(arch: str, kernel: bool, **remat) -> None:
     """One managed step of the port (``kernel``: the hand-written
     kernels' arm, their plain versions on the CPU) against JAX's plain
     dense step, from a warm accumulator, with the family's extra
-    inputs."""
+    inputs.  ``remat``: ``remat`` / ``remat_policy`` for both steps
+    (their defaults otherwise: each layer rematerialised, "full")."""
     cfg, jp, model = carried(arch)
     M = 64
     tok, lab = batch(cfg, 3)
@@ -117,7 +118,7 @@ def check_one_step(arch: str, kernel: bool) -> None:
     jacc = warm_accum(jp)
     jb, cache, n_miss = managed_batch(cfg, jp, tok, lab, M)
     jstep = jmake_train_step(jget_config(arch, smoke=True), lr=0.01,
-                             pm_miss_capacity=M, pm_kernel=False)
+                             pm_miss_capacity=M, pm_kernel=False, **remat)
     jl, jp2, js2 = jstep(jp, jopt.AdaGradState(jacc),
                          dict(jb, **jax_of(ex)))
 
@@ -130,7 +131,7 @@ def check_one_step(arch: str, kernel: bool) -> None:
           "pm_cache_rows": make_state(model.embed.detach(), tc).cache_rows,
           "pm_n_miss": n_miss, **torch_of(ex)}
     step = make_train_step(cfg, lr=0.01, pm_miss_capacity=M,
-                           pm_kernel=kernel)
+                           pm_kernel=kernel, **remat)
     tl, model, state = step(model, state, tb)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     got = leaves(params_to_jax({k: v.detach() for k, v in

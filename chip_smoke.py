@@ -112,7 +112,20 @@ order it:
    within rtol 1e-6 of the first, the same kernel launches in all three
    (the lookup is outside the rematerialised layers), and zamba2's peak
    lower under "full"; prints step ms and peak memory;
-11. prints the kernel table as one JSON line, the card line and, last,
+11. decodes `long_500k` on the card: the full falcon-mamba-7b and
+   zamba2-1.2b, one sequence against a 524288-position cache of seeded
+   normals (zamba2's KV caches: 60.13 GB), from len 524267 to the
+   cache's end; falcon-mamba's step must equal itself bit for bit at
+   len 524267 and 95, zamba2's first application's attention must hold
+   4 heads within rtol 1e-4 / atol 1e-5 of float64 and its k and v at
+   slot 524267; prints ms per token (median of 20 steps), the bytes a
+   token reads over the HBM rate, and the peak memory;
+12. runs the dry run (`repro_torch.launch.dryrun`) on the card's host,
+   in worker processes of their own: one architecture per family
+   through every shape on the 16 x 16 mesh and one combination on the
+   2 x 16 x 16 mesh, each a step called once on fake DTensors; prints
+   each record and the counts, and any combination in error fails;
+13. prints the kernel table as one JSON line, the card line and, last,
    the device line.
 
 Any failure raises, so the script exits non-zero before those last lines.
@@ -244,6 +257,25 @@ ZIPF_KEYS = 1_000_000
 REMAT_ARCHS = (HYBRID_ARCH, MOE_ARCH)
 REMAT_SETTINGS = ((False, "full"), (True, "full"), (True, "dots"))
 REMAT_STEPS, REMAT_CACHE, REMAT_RTOL = 6, 1024, 1e-6
+# the long_500k phase: configs/shapes.py's long_500k (one sequence, a
+# cache of 524288 positions) decoded by the full falcon-mamba-7b (64
+# layers, 29.1 GB of fp32 weights, an O(1) state) and zamba2-1.2b (38
+# layers, 4.7 GB of weights, and 7 KV caches of 524288 x 32 x 64 fp32 for
+# k and for v: 60.13 GB); the cache holds seeded normals (no prefill)
+# with len LONG_CONTEXT - LONG_STEPS - 1: one checked step, then
+# LONG_STEPS timed ones fill it to its end
+LONG_DECODE = (SSM_ARCH, HYBRID_ARCH)
+LONG_STEPS = 20
+LONG_EARLY = 95               # the other position of the Mamba-1 check
+LONG_HEADS = 4                # heads held to a float64 attention
+LONG_RTOL, LONG_ATOL = 1e-4, 1e-5
+# the dry-run phase (host only, in worker processes): one architecture per
+# family through every shape on the 16 x 16 mesh (the full sweep of all
+# ten takes longer than this phase may: PERF.md has its numbers, from
+# the CLI), and one combination on the 2 x 16 x 16 mesh
+DRYRUN_ARCHS = ("smollm-135m", "mixtral-8x22b", "qwen2-vl-7b",
+                ENCDEC_ARCH, SSM_ARCH, HYBRID_ARCH)
+DRYRUN_MULTI_POD = (SSM_ARCH, "long_500k")
 
 
 def bits(x):
@@ -1905,6 +1937,205 @@ def rematerialise(arch: str, dev) -> list:
     return runs
 
 
+def long_cache(cfg, dev, length: int):
+    """A one-sequence decode cache of LONG_CONTEXT positions on ``dev``,
+    filled with seeded normals from a generator on the card (the conv
+    ring and the KV caches at 0.5, ``h`` at 0.1), at ``len`` ``length``."""
+    import torch
+    from repro_torch.models.model import init_cache
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    cache = init_cache(cfg, 1, LONG_CONTEXT, device=dev)
+    for name, t in cache.items():
+        if name != "len":
+            t.normal_(generator=gen).mul_(0.1 if name == "h" else 0.5)
+    cache["len"] = length
+    return cache
+
+
+@contextlib.contextmanager
+def first_attention():
+    """Records the first application's decode attention of a step: the
+    arguments and output of the first `layers.decode_attention` call, and
+    the chunks the first two `layers.write_chunk` calls write (its k and
+    its v)."""
+    from repro_torch.models import layers
+    seen = {"attention": [], "writes": []}
+    attend, write = layers.decode_attention, layers.write_chunk
+
+    def attend_(q, k, v, cache_len, **kw):
+        out = attend(q, k, v, cache_len, **kw)
+        if not seen["attention"]:
+            seen["attention"].append((q, out, cache_len))
+        return out
+
+    def write_(cache, t, idx):
+        write(cache, t, idx)
+        if len(seen["writes"]) < 2:
+            seen["writes"].append((cache, t.clone(), idx))
+
+    layers.decode_attention, layers.write_chunk = attend_, write_
+    try:
+        yield seen
+    finally:
+        layers.decode_attention, layers.write_chunk = attend, write
+
+
+def check_long_attention(cfg, seen) -> dict:
+    """The hybrid's first application: its new k and v at their slot, bit
+    for bit, and the new token's attention output for LONG_HEADS heads
+    against a float64 recomputation over every cached position."""
+    import torch
+    (q, out, cache_len), = seen["attention"]
+    (kc, k_new, idx), (vc, v_new, _) = seen["writes"]
+    if idx != cache_len - 1 or not (torch.equal(kc[:, idx], k_new[:, 0])
+                                    and torch.equal(vc[:, idx],
+                                                    v_new[:, 0])):
+        raise AssertionError(f"{cfg.arch_id}: slot {idx} does not hold the "
+                             f"step's k and v")
+    rep = cfg.n_heads // cfg.n_kv_heads
+    heads = list(range(LONG_HEADS))
+    kv = [h // rep for h in heads]
+    k = kc[:, :cache_len, kv].double()
+    v = vc[:, :cache_len, kv].double()
+    s = torch.einsum("bqhd,bkhd->bhqk", q[:, :, heads].double(), k) \
+        / float(cfg.head_dim) ** 0.5
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+    got = out[:, :, heads].double()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=LONG_RTOL, atol=LONG_ATOL):
+        raise AssertionError(f"{cfg.arch_id}: attention over {cache_len} "
+                             f"positions differs from float64 by {err}")
+    return {"positions": int(cache_len), "heads": LONG_HEADS,
+            "max_abs_diff_vs_float64": err, "rtol": LONG_RTOL,
+            "atol": LONG_ATOL, "slot_holds_step_kv": idx}
+
+
+def long_decode(arch: str, dev) -> dict:
+    """`long_500k` on the card: the full ``arch`` (seeded fp32 weights)
+    decoding one sequence against a LONG_CONTEXT-position cache of seeded
+    normals (`long_cache`), from len LONG_CONTEXT - LONG_STEPS - 1: one
+    checked step (falcon-mamba: the same step at len LONG_EARLY on the
+    same state, bit for bit; zamba2: `check_long_attention`; both: finite
+    logits), then LONG_STEPS greedy steps timed one by one (host clock,
+    synchronised), which fill the cache to its end.  The bound is the
+    bytes a token must read (every weight and the state, the KV caches
+    included) over the HBM rate."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train.steps import make_serve_step
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, model = decode_model(arch, None, dev)
+    start = LONG_CONTEXT - LONG_STEPS - 1
+    cache = long_cache(cfg, dev, start)
+    serve = make_serve_step(cfg)
+    ops.reset_launch_counts()
+    tok = torch.tensor([[int(np.random.default_rng(SEED).integers(
+        cfg.vocab_size))]], dtype=torch.int32, device=dev)
+    checks = {}
+    if cfg.family == "ssm":
+        before = {n: cache[n].clone() for n in ("conv", "h")}
+        lg, cache = serve(model, cache, tok)
+        after = {n: cache[n].clone() for n in ("conv", "h")}
+        for n in before:
+            cache[n].copy_(before[n])
+        cache["len"] = LONG_EARLY
+        early, cache = serve(model, cache, tok)
+        same = torch.equal(lg, early) and all(
+            torch.equal(cache[n], after[n]) for n in after)
+        if not same:
+            raise AssertionError(f"{arch}: the step at len {start} differs "
+                                 f"from the step at len {LONG_EARLY}: a "
+                                 f"position enters the Mamba-1 step")
+        for n in after:
+            cache[n].copy_(after[n])
+        cache["len"] = start + 1
+        del before, after, early
+        checks["positions_compared"] = [start, LONG_EARLY]
+        checks["bitwise_equal"] = True
+    else:
+        with first_attention() as seen:
+            lg, cache = serve(model, cache, tok)
+        checks = check_long_attention(cfg, seen)
+        del seen
+    if not bool(torch.isfinite(lg).all()) or \
+            tuple(lg.shape) != (1, cfg.vocab_size):
+        raise AssertionError(f"{arch}: logits {tuple(lg.shape)} not finite")
+    ms = []
+    for _ in range(LONG_STEPS):
+        tok = lg.argmax(dim=-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = serve(model, cache, tok)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if cache["len"] != LONG_CONTEXT or not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"{arch}: len {cache['len']} after the steps")
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"{arch}: decoding launched {launches}")
+    weight_b = sum(p.numel() * p.element_size() for p in model.parameters())
+    state_b = sum(t.numel() * t.element_size() for n, t in cache.items()
+                  if n != "len")
+    out = {"arch": arch, "n_layers": cfg.n_layers, "batch": 1,
+           "cache_positions": LONG_CONTEXT, "first_len": start,
+           "steps_timed": LONG_STEPS,
+           "ms_per_token_median": statistics.median(ms),
+           "ms_per_token_min": min(ms), "ms_per_token_max": max(ms),
+           "weight_bytes": weight_b, "state_bytes": state_b,
+           "bound_ms": (weight_b + state_b) / HBM_BYTES_PER_S * 1e3,
+           "checks": checks,
+           "peak_alloc_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del model, cache, lg
+    free_card()
+    return out
+
+
+def dry_run(tmp: Path) -> dict:
+    """The dry run (`repro_torch.launch.dryrun`) on the card's host, in
+    worker processes of its own (its fake process group never meets the
+    card's): DRYRUN_ARCHS through every shape on the 16 x 16 mesh, and
+    DRYRUN_MULTI_POD on the 2 x 16 x 16 mesh, at the same time.  Any
+    combination in error fails the phase.  Returns the records and the
+    counts."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    jobs = max(1, (os.cpu_count() or 2) - 1)
+    arch, shape = DRYRUN_MULTI_POD
+    runs = [(cmd + ["--arch", arch, "--shape", shape, "--multi-pod",
+                    "--out", str(tmp / "multi_pod.json")]),
+            (cmd + ["--arch", *DRYRUN_ARCHS, "--jobs", str(jobs),
+                    "--out", str(tmp / "single_pod.json")])]
+    logs = [tmp / f"dryrun{i}.log" for i in range(len(runs))]
+    procs = []
+    try:
+        for c, log in zip(runs, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    c, env=env, cwd=ROOT, stdout=f,
+                    stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=900)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for p, log, c in zip(procs, logs, runs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(c[2:])} exited {p.returncode}:\n"
+                               f"{log.read_text()[-4000:]}")
+        recs += json.loads(Path(c[-1]).read_text())
+    counts = {k: sum(r["status"] == k for r in recs)
+              for k in ("ok", "skipped", "error")}
+    if counts["error"]:
+        raise AssertionError(f"dry run: {counts}")
+    return {"records": recs, "counts": counts}
+
+
 SOURCE = {"embed_gather": "src/repro_torch/kernels/csrc/row_kernels.cu",
           "pm_combine": "src/repro_torch/kernels/csrc/row_kernels.cu",
           "adagrad_rows": "src/repro_torch/kernels/csrc/adagrad_rows.cu",
@@ -2017,13 +2248,13 @@ def main() -> int:
         phase_s[name] = now - last
         last = now
 
-    print(f"[1/11] device: {card} ({torch.cuda.get_device_name(0)}, "
+    print(f"[1/13] device: {card} ({torch.cuda.get_device_name(0)}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
     t0 = time.perf_counter()
     lib = build.build()
     build.library()
-    print(f"[2/11] built {lib.relative_to(Path(__file__).resolve().parent)} "
+    print(f"[2/13] built {lib.relative_to(Path(__file__).resolve().parent)} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     phase("build")
 
@@ -2032,33 +2263,33 @@ def main() -> int:
     err.update(check_training_kernels(table))
     seg = check_segment_scatter(dev)
     err["segment_scatter_rows"] = seg["max_abs_err"]
-    print("[3/11] embed_gather paths " + json.dumps(paths), flush=True)
-    print("[3/11] segment_scatter_rows " + json.dumps(seg), flush=True)
+    print("[3/13] embed_gather paths " + json.dumps(paths), flush=True)
+    print("[3/13] segment_scatter_rows " + json.dumps(seg), flush=True)
     times = time_kernels(table)
     times.update(time_training_kernels(table))
     times["segment_scatter_rows"] = time_segment_scatter(dev)
-    print("[3/11] kernels == plain versions, bitwise: "
+    print("[3/13] kernels == plain versions, bitwise: "
           + json.dumps({k: {"max_abs_err": err[k], **times[k]}
                         for k in err}), flush=True)
-    print(f"[3/11] kernels at {MOE_ARCH}'s shapes " + json.dumps(
+    print(f"[3/13] kernels at {MOE_ARCH}'s shapes " + json.dumps(
         dict(time_at_moe_shapes(dev), card=card)), flush=True)
     phase("kernels")
 
     runs = [serve(table),
             serve(table, cache_capacity=512, pipeline_depth=2)]
     for r in runs:
-        print("[4/11] serve " + json.dumps(r), flush=True)
+        print("[4/13] serve " + json.dumps(r), flush=True)
     sizes = sorted(set(serve_sizes(runs)) | {N_IDS})
-    print("[4/11] embed_gather at the serving runs' sizes and n=4096, both "
+    print("[4/13] embed_gather at the serving runs' sizes and n=4096, both "
           "paths " + json.dumps(gather_at_sizes(table, sizes)), flush=True)
     for knobs in ({}, {"cache_capacity": 512, "pipeline_depth": 2}):
-        print("[4/11] profile " + json.dumps(profile(table, **knobs)),
+        print("[4/13] profile " + json.dumps(profile(table, **knobs)),
               flush=True)
     del table
     free_card()
     phase("serve")
 
-    print("[5/11] lookup backward launches " + json.dumps(
+    print("[5/13] lookup backward launches " + json.dumps(
         backward_launches(dev)), flush=True)
     trains, other_trains = [], []
     for arch in ("nemotron-4-15b", "smollm-135m", MOE_ARCH) + FAMILY_ARCHS:
@@ -2069,46 +2300,46 @@ def main() -> int:
         diff = float(np.max(np.abs(np.subtract(ker["losses"],
                                                plain["losses"]))))
         for r in (ker, plain):
-            print("[5/11] train " + json.dumps(r), flush=True)
-        print(f"[5/11] {arch}: kernel vs plain loss trace, max abs diff "
+            print("[5/13] train " + json.dumps(r), flush=True)
+        print(f"[5/13] {arch}: kernel vs plain loss trace, max abs diff "
               f"{diff!r} (rtol {TRACE_RTOL}, atol {TRACE_ATOL})", flush=True)
         (trains if arch in ("nemotron-4-15b", "smollm-135m")
          else other_trains).append(ker)
         phase(f"train {arch}")
     for arch in ("nemotron-4-15b", "smollm-135m", MOE_ARCH) + FAMILY_ARCHS:
-        print("[5/11] train profile " + json.dumps(
+        print("[5/13] train profile " + json.dumps(
             dict(train_profile(arch), card=card)), flush=True)
         phase(f"train profile {arch}")
 
     for arch, layers in DECODE:
-        print("[6/11] decode " + json.dumps(
+        print("[6/13] decode " + json.dumps(
             dict(decode(arch, layers, dev), card=card)), flush=True)
         phase(f"decode {arch}")
 
-    print("[7/11] flash_attention == decode_attention " + json.dumps(
+    print("[7/13] flash_attention == decode_attention " + json.dumps(
         dict(check_flash_attention(dev), card=card)), flush=True)
-    print("[7/11] long prefill " + json.dumps(
+    print("[7/13] long prefill " + json.dumps(
         dict(long_prefill(dev), card=card)), flush=True)
     phase("long prefill")
 
     import torch.distributed as dist
     with nccl_group(dev) as be:
-        print(f"[8/11] process group: backend {dist.get_backend()}, world "
+        print(f"[8/13] process group: backend {dist.get_backend()}, world "
               f"size {dist.get_world_size()}, {type(be).__name__} of "
               f"{be.n_shards} shard on {be.device} ({card})", flush=True)
         table = make_table(dev)
         mesh_err = check_mesh_backend(be, table)
-        print("[8/11] mesh backend == emulated backend, bitwise: "
+        print("[8/13] mesh backend == emulated backend, bitwise: "
               + json.dumps(dict(mesh_err, card=card)), flush=True)
         serve_runs, serve_ms, serve_prof = serve_mesh(table)
         for r in serve_runs:
-            print("[8/11] mesh serve " + json.dumps(dict(r, card=card)),
+            print("[8/13] mesh serve " + json.dumps(dict(r, card=card)),
                   flush=True)
-        print("[8/11] mesh serve ms per round in turns (emulated, mesh, mesh,"
+        print("[8/13] mesh serve ms per round in turns (emulated, mesh, mesh,"
               " emulated; 32 rounds, one shard) "
               + json.dumps(dict(serve_ms, card=card)), flush=True)
         for name, prof in serve_prof.items():
-            print(f"[8/11] profile, {name}, one shard " + json.dumps(
+            print(f"[8/13] profile, {name}, one shard " + json.dumps(
                 dict(prof, card=card)), flush=True)
         del table
         free_card()
@@ -2120,18 +2351,18 @@ def main() -> int:
                 err_msg=f"{r['arch']}: mesh vs emulated trace")
             diff = float(np.max(np.abs(np.subtract(r["losses"],
                                                    emu["losses"]))))
-            print("[8/11] mesh train " + json.dumps(dict(r, card=card)),
+            print("[8/13] mesh train " + json.dumps(dict(r, card=card)),
                   flush=True)
-            print(f"[8/11] {r['arch']}: mesh vs emulated kernel loss trace, "
+            print(f"[8/13] {r['arch']}: mesh vs emulated kernel loss trace, "
                   f"max abs diff {diff!r} (rtol {TRACE_RTOL}, atol "
                   f"{TRACE_ATOL}) ({card})", flush=True)
             mesh_runs.append(r)
-    print("[8/11] mesh runs' launches " + json.dumps(
+    print("[8/13] mesh runs' launches " + json.dumps(
         {name: sum(r["launches"][name] for r in mesh_runs)
          for name in REPLACES}), flush=True)
     phase("mesh")
 
-    print("[9/11] simulator (host; epoch times, speedups and bytes "
+    print("[9/13] simulator (host; epoch times, speedups and bytes "
           "simulated by CostModel) " + json.dumps(
               dict(simulator(), card=card)), flush=True)
     phase("simulator")
@@ -2139,10 +2370,31 @@ def main() -> int:
     remat_runs = []
     for arch in REMAT_ARCHS:
         for r in rematerialise(arch, dev):
-            print("[10/11] remat " + json.dumps(dict(r, card=card)),
+            print("[10/13] remat " + json.dumps(dict(r, card=card)),
                   flush=True)
             remat_runs.append(r)
         phase(f"remat {arch}")
+
+    for arch in LONG_DECODE:
+        print("[11/13] long_500k decode " + json.dumps(
+            dict(long_decode(arch, dev), card=card)), flush=True)
+        phase(f"long_500k {arch}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dr = dry_run(Path(tmp))
+    for r in dr["records"]:
+        keep = {k: r.get(k) for k in ("arch", "shape", "mesh", "status",
+                                      "reason", "n_devices", "flops",
+                                      "collective_bytes", "trace_s")}
+        if r["status"] == "ok":
+            keep["argument_bytes_per_device"] = \
+                r["memory"]["argument_bytes"]
+            keep["collective_bytes_per_op"] = r["collective_bytes_per_op"]
+        print("[12/13] dry run " + json.dumps(keep), flush=True)
+    print("[12/13] dry run (host, fake process groups of 256 and 512 ranks): "
+          + json.dumps(dict(dr["counts"], archs=list(DRYRUN_ARCHS),
+                            multi_pod=list(DRYRUN_MULTI_POD))), flush=True)
+    phase("dry run")
 
     kernels = []
     for name in REPLACES:
@@ -2158,7 +2410,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"],
             "host_us": t["host_us"], "library_host_us": t["library_host_us"]})
-    print(f"[11/11] done in {time.perf_counter() - start:.1f} s; seconds per "
+    print(f"[13/13] done in {time.perf_counter() - start:.1f} s; seconds per "
           f"phase " + json.dumps(phase_s))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,6 +14,15 @@ CPU the group is gloo.  Nothing falls back from one to the other.
 already started it; `init_group` starts it for one rank, and `run_ranks`
 starts ``n`` ranks of a function in fresh processes (the tests, and any
 launcher) and returns what each rank returned.
+
+`make_production_mesh` is the reference's production mesh, (16, 16) over
+``("data", "model")`` or (2, 16, 16) over ``("pod", "data", "model")``,
+as a `DeviceMesh` over a ``"fake"`` process group of 256 or 512 ranks in
+this one process: DTensor programs on it propagate shardings and issue
+collectives that move nothing, which is what the dry run
+(`launch.dryrun`) traces.  The sharding rules (`launch.sharding`) read
+only a mesh's axis names and sizes, through `axis_size` and `batch_axes`,
+from a `DeviceMesh`, a `ModelGroup` or a plain `MeshShape`.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import tempfile
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Any, Callable, List
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -84,12 +93,77 @@ def gather_ranks(x: torch.Tensor, mesh: ModelGroup) -> torch.Tensor:
     return out.view((mesh.size,) + tuple(x.shape))
 
 
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, without devices: what the sharding
+    rules read (the reference's rules read only ``mesh.shape`` and
+    ``mesh.axis_names``)."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """Axis name -> size of a `DeviceMesh`, a `ModelGroup` (the one axis
+    ``"model"``), a `MeshShape` or no mesh (None: no axis)."""
+    if mesh is None:
+        return {}
+    if isinstance(mesh, ModelGroup):
+        return {"model": mesh.size}
+    if isinstance(mesh, MeshShape):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
 def axis_size(mesh, name: str = "model") -> int:
-    """Ranks along mesh axis ``name`` (a `ModelGroup` has the one axis
-    ``"model"``; any other axis, or no mesh, has size 1)."""
-    if mesh is None or name != "model":
-        return 1
-    return mesh.size
+    """Ranks along mesh axis ``name`` (1 for an axis the mesh lacks, or
+    no mesh)."""
+    return mesh_axes(mesh).get(name, 1)
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """Mesh axes the global batch is sharded over."""
+    return ("pod", "data") if "pod" in mesh_axes(mesh) else ("data",)
+
+
+def make_production_mesh(multi_pod: bool = False):
+    """The production mesh as a `DeviceMesh` over a ``"fake"`` process
+    group in this process: (16, 16) over ``("data", "model")``, or
+    ``multi_pod`` (2, 16, 16) over ``("pod", "data", "model")``.  Nothing
+    is allocated and no collective moves data.
+
+    A dry run is a process of its own, as the reference's is with its
+    host-device flag: this starts the default process group (`fake_mesh`)
+    and raises if the process already has a real one."""
+    if multi_pod:
+        return fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return fake_mesh((16, 16), ("data", "model"))
+
+
+def fake_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
+    """A `DeviceMesh` of ``shape`` over ``names`` on a ``"fake"`` default
+    process group of as many ranks, this process rank 0 (a fake group of
+    another size is replaced; a real group raises)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    world = 1
+    for n in shape:
+        world *= n
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a fake mesh needs a fake process group; "
+                               "this process has a real "
+                               f"{dist.get_backend()!r} one")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", rank=0, world_size=world,
+                                store=FakeStore())
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(names))
 
 
 def init_group(rank: int, world_size: int, init_file: str, *,

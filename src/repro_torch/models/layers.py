@@ -21,6 +21,9 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from .layouts import laid_out_grad, whole_along, whole_heads
 
 Params = Mapping[str, torch.Tensor]
 
@@ -129,8 +132,10 @@ def _repeat_kv(k, n_rep: int):
     if n_rep == 1:
         return k
     b, s, h, d = k.shape
-    return k[:, :, :, None, :].expand(b, s, h, n_rep, d) \
+    out = k[:, :, :, None, :].expand(b, s, h, n_rep, d) \
         .reshape(b, s, h * n_rep, d)
+    # the backward splits the heads into (h, n_rep) again
+    return laid_out_grad(out, lambda g: whole_along(g, 2, h))
 
 
 def _block_attn(q, k, v, mask, scale):
@@ -174,6 +179,7 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
+    q, k, v = whole_heads(q), whole_heads(k), whole_heads(v)
     qh = q.transpose(1, 2)                                    # (B,H,Sq,d)
     kh = _repeat_kv(k, H // k.shape[2]).transpose(1, 2)
     vh = _repeat_kv(v, H // v.shape[2]).transpose(1, 2)
@@ -183,9 +189,9 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
         q1 = min(q0 + q_block, Sq)
         first, last = q_offset + q0, q_offset + q1 - 1        # positions
         qp = torch.arange(first, last + 1, device=dev)[:, None]
-        o = torch.zeros((B, H, q1 - q0, hd), dtype=torch.float32,
-                        device=dev)
-        m = torch.zeros((B, H, q1 - q0), dtype=torch.float32, device=dev)
+        # from ``qh``: a DTensor's accumulators are DTensors too
+        o = qh.new_zeros((B, H, q1 - q0, hd), dtype=torch.float32)
+        m = qh.new_zeros((B, H, q1 - q0), dtype=torch.float32)
         l = torch.zeros_like(m)
         for k0 in range(0, Skv, kv_block):
             k1 = min(k0 + kv_block, Skv)
@@ -213,7 +219,8 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
             m = m_new
         outs.append(o / l.clamp(min=1e-20)[..., None])
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
-    return out.transpose(1, 2).to(q.dtype)
+    # the backward's tile products need the gradient's heads whole too
+    return laid_out_grad(out.transpose(1, 2).to(q.dtype), whole_heads)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len: int, *,
@@ -228,8 +235,9 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *,
     step, Sq > 1 the fused prefill.  Scores and softmax in fp32."""
     B, Sq, H, hd = q.shape
     S = k_cache.shape[1]
-    k = _repeat_kv(k_cache, H // k_cache.shape[2])
-    v = _repeat_kv(v_cache, H // v_cache.shape[2])
+    q = whole_heads(q)
+    k = _repeat_kv(whole_heads(k_cache), H // k_cache.shape[2])
+    v = _repeat_kv(whole_heads(v_cache), H // v_cache.shape[2])
     pos = torch.arange(S, device=q.device)
     q_pos = cache_len - Sq + torch.arange(Sq, device=q.device)
     valid = pos[None, :] <= q_pos[:, None]
@@ -240,6 +248,44 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *,
     p = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).float()
     return o.to(q.dtype)
+
+
+def split_heads(t, n: int, hd: int):
+    """(B, S, n * hd) -> (B, S, n, hd).  A DTensor is gathered along the
+    split dimension first where ``n`` does not divide among its shards,
+    and so is its gradient before the backward merges it again."""
+    B, S = t.shape[:2]
+    if not isinstance(t, DTensor):
+        return t.reshape(B, S, n, hd)
+    t = whole_along(t, t.ndim - 1, n)
+    return laid_out_grad(t.reshape(B, S, n, hd),
+                         lambda g: whole_along(g, 2, n))
+
+
+def merge_heads(t):
+    """(B, S, n, hd) -> (B, S, n * hd), the inverse of `split_heads`."""
+    B, S, n = t.shape[:3]
+    if not isinstance(t, DTensor):
+        return t.reshape(B, S, -1)
+    t = whole_along(t, 2, n)
+    return laid_out_grad(t.reshape(B, S, -1),
+                         lambda g: whole_along(g, 2, n))
+
+
+def write_chunk(cache: torch.Tensor, t: torch.Tensor, idx: int) -> None:
+    """``cache[:, idx:idx + S] = t`` in place (t: (B, S, ...)).  A DTensor
+    cache takes one-token chunks, written by a select over the positions:
+    a slice along a sharded dimension would be gathered and the write
+    lost."""
+    S = t.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, idx:idx + S] = t
+        return
+    if S != 1:
+        raise NotImplementedError("a DTensor cache takes one-token chunks")
+    pos = torch.arange(cache.shape[1], device=cache.device) == idx
+    cache.copy_(torch.where(pos.view((1, -1) + (1,) * (t.ndim - 2)), t,
+                            cache))
 
 
 def attention_block(x, p: Params, cfg, positions, *, cache=None,
@@ -261,12 +307,12 @@ def attention_block(x, p: Params, cfg, positions, *, cache=None,
     cache would be needed."""
     B, S, D = x.shape
     H, KvH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    q = split_heads(x @ p["wq"], H, hd)
     if cross_kv is not None:
         o = flash_attention(q, *cross_kv, causal=False)
-        return o.reshape(B, S, H * hd) @ p["wo"], cache
-    k = (x @ p["wk"]).reshape(B, S, KvH, hd)
-    v = (x @ p["wv"]).reshape(B, S, KvH, hd)
+        return merge_heads(o) @ p["wo"], cache
+    k = split_heads(x @ p["wk"], KvH, hd)
+    v = split_heads(x @ p["wv"], KvH, hd)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta,
                            cfg.mrope_sections if cfg.mrope else None)
     q = apply_rope(q, cos, sin)
@@ -283,12 +329,15 @@ def attention_block(x, p: Params, cfg, positions, *, cache=None,
                 f"fit the {S_cache}-position KV cache (a sliding-window "
                 f"cache holds the first {S_cache} positions and does not "
                 f"roll)")
-        cache["k"][:, idx:cache_len] = k
-        cache["v"][:, idx:cache_len] = v
-        o = decode_attention(q, cache["k"][:, :cache_len],
-                             cache["v"][:, :cache_len], cache_len,
+        for name, t in (("k", k), ("v", v)):
+            write_chunk(cache[name], t, idx)
+        # a full cache is read whole (a DTensor sharded along the
+        # positions cannot be sliced along them)
+        o = decode_attention(q, *(cache[n] if cache_len == S_cache
+                                  else cache[n][:, :cache_len]
+                                  for n in ("k", "v")), cache_len,
                              window=cfg.sliding_window)
-    return o.reshape(B, S, H * hd) @ p["wo"], cache
+    return merge_heads(o) @ p["wo"], cache
 
 # --------------------------------------------------------------------- mlp
 

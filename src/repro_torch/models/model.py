@@ -64,16 +64,21 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.launch.sharding import block_rows
+from repro_torch.launch.sharding import block_rows, placements
 from repro_torch.pm.embedding import pm_lookup
 from .layers import (_dense_init, attention_block, init_attention, init_mlp,
                      init_norm, mlp_block, norm)
+from .layouts import (between_layers, laid_out_grad, reduce_partials,
+                      reduce_partials_both_ways)
 from .moe import init_moe, moe_block
 from .ssm import init_mamba1, init_mamba2, mamba1_block, mamba2_block
 
@@ -234,8 +239,12 @@ class EncDecLayer(nn.Module):
         if enc_out is not None:
             B, F = enc_out.shape[:2]
             H, hd = cfg.n_heads, cfg.head_dim
-            ck = (enc_out @ self.cross["wk"]).reshape(B, F, H, hd)
-            cv = (enc_out @ self.cross["wv"]).reshape(B, F, H, hd)
+            # (a DTensor's two gradient shares reduced before autograd
+            # sums them)
+            ck = (laid_out_grad(enc_out, reduce_partials)
+                  @ self.cross["wk"]).reshape(B, F, H, hd)
+            cv = (laid_out_grad(enc_out, reduce_partials)
+                  @ self.cross["wv"]).reshape(B, F, H, hd)
             x, _ = attention_block(
                 norm(h, self.norm_x, cfg.norm, cfg.norm_eps), self.cross,
                 cfg, positions, cross_kv=(ck, cv))
@@ -300,8 +309,9 @@ class DenseLM(nn.Module):
         positions = torch.arange(F, device=frames.device).expand(B, F)
         h = frames
         for layer in self.enc_layers:
-            h = layer(h, ecfg, positions)
-        return norm(h, self.enc_norm, cfg.norm, cfg.norm_eps)
+            h = layer(between_layers(h), ecfg, positions)
+        return norm(between_layers(h), self.enc_norm, cfg.norm,
+                    cfg.norm_eps)
 
     def forward(self, batch: Dict[str, Any], cache: Optional[dict] = None,
                 *, pm_miss_capacity: int = 0,
@@ -310,7 +320,7 @@ class DenseLM(nn.Module):
                 embed_rows: Optional[torch.Tensor] = None,
                 head_last_only: bool = False, skip_head: bool = False,
                 routes: Optional[list] = None, remat: bool = False,
-                remat_policy: str = "full"):
+                remat_policy: str = "full", fsdp_spec=None):
         """Returns (logits, aux_loss, new_cache), or with ``skip_head``
         (the final hidden state (B, S, D), aux_loss, new_cache).
 
@@ -327,6 +337,12 @@ class DenseLM(nn.Module):
         ``remat``: each layer a rematerialised unit with ``remat_policy``
         ("full" or "dots", `REMAT_POLICIES`); never with a cache, as the
         reference passes ``remat and cache is None``.
+        ``fsdp_spec``: the FSDP gather (the reference's `_constrain`): a
+        spec per parameter of one layer of ``layers``, named relative to
+        the layer (`launch.sharding.param_pspecs`); each layer's DTensor
+        weights are redistributed to those placements as the layer runs
+        (inside its rematerialised unit), so the layer gathers its
+        ZeRO-sharded weights instead of its activations.  None: nothing.
 
         batch: ``tokens`` (B, S) int, optional ``positions`` ((B, S), or
         (B, S, 3) for M-RoPE; by default the chunk's positions, the same
@@ -355,6 +371,12 @@ class DenseLM(nn.Module):
                           batch["pm_cache_rows"], tokens, pm_miss_capacity,
                           pm_strict, pm_kernel, pm_backend, pm_residual,
                           batch.get("pm_n_miss"), batch.get("pm_route_cap", 0))
+        elif isinstance(self.embed, DTensor):
+            # DTensor's rule for a vocab-sharded lookup (the plain index
+            # has none) leaves masked partial sums, reduced here once:
+            # DTensor keeps their mask for one reduction only
+            h = reduce_partials_both_ways(
+                F.embedding(tokens.long(), self._table()))
         else:
             h = self.embed[tokens.long()]
         if cfg.family == "vlm" and "img_embeds" in batch:
@@ -371,22 +393,31 @@ class DenseLM(nn.Module):
             if cfg.mrope:
                 positions = positions[..., None].expand(B, S, 3)
         policy = remat_policy if remat else None
+        layers = [gathered(layer, fsdp_spec) for layer in self.layers]
         if cfg.family in RECURRENT:
-            h = self._recurrent(h, positions, cache, policy)
+            h = self._recurrent(layers, h, positions, cache, policy)
             aux = torch.zeros((), dtype=h.dtype, device=h.device)
         else:
-            h, aux = self._attention(batch, h, positions, cache, routes,
-                                     policy)
-        h = norm(h, self.final_norm, cfg.norm, cfg.norm_eps)
+            h, aux = self._attention(layers, batch, h, positions, cache,
+                                     routes, policy)
+        h = norm(between_layers(h), self.final_norm, cfg.norm, cfg.norm_eps)
         if head_last_only:
             h = h[:, -1:]
         if skip_head:
             return h, aux, cache
-        head = self.embed.T if cfg.tie_embeddings else self.head
+        head = self._table().T if cfg.tie_embeddings else self.head
         return h @ head, aux, cache
 
-    def _attention(self, batch, h, positions, cache, routes, policy=None):
-        """The attention families' stack; returns (h, summed MoE aux).
+    def _table(self):
+        """``embed``; a DTensor table's gradient from each use (the lookup,
+        a tied head) with its partial sums reduced before autograd adds
+        the two (DTensor cannot add them laid out apart)."""
+        return laid_out_grad(self.embed, reduce_partials)
+
+    def _attention(self, layers, batch, h, positions, cache, routes,
+                   policy=None):
+        """The attention families' stack over ``layers`` (`self.layers`,
+        or callables that run them); returns (h, summed MoE aux).
         The encoder-decoder decoder attends to the encoder's output: the
         cache's ``enc_out``, or without a cache the encoder run over
         ``batch["frames"]``.  ``policy``: each layer a rematerialised
@@ -399,15 +430,19 @@ class DenseLM(nn.Module):
         if cfg.family == "encdec":
             enc_out = self.encode(batch["frames"]) if cache is None \
                 else cache["enc_out"]
-        for i, layer in enumerate(self.layers):
+        for i, layer in enumerate(layers):
+            h = between_layers(h)
             kv = None if cache is None else \
                 {"k": cache["k"][i], "v": cache["v"][i]}
-            if enc_out is not None and policy:
+            # each decoder layer's share of the encoder output's gradient
+            # laid out alike before autograd sums the shares (DTensor)
+            enc = None if enc_out is None else between_layers(enc_out)
+            if enc is not None and policy:
                 h = remat_call(partial(_decoder_layer, layer, cfg,
-                                       positions), "full", h, enc_out)
+                                       positions), "full", h, enc)
                 continue
-            if enc_out is not None:
-                h = layer(h, cfg, positions, enc_out, kv, cache_len)
+            if enc is not None:
+                h = layer(h, cfg, positions, enc, kv, cache_len)
                 continue
             if policy:
                 h, aux_l = remat_call(_first_routes(layer, cfg, positions,
@@ -418,8 +453,9 @@ class DenseLM(nn.Module):
                 aux = aux + aux_l
         return h, aux
 
-    def _recurrent(self, h, positions, cache, policy=None):
-        """The ssm / hybrid trunk: `SSMLayer`s in order, the hybrid's
+    def _recurrent(self, layers, h, positions, cache, policy=None):
+        """The ssm / hybrid trunk over ``layers`` (`self.layers`, or
+        callables that run them): `SSMLayer`s in order, the hybrid's
         ``shared_attn`` before layer ``i`` when ``i % attn_every == 0``
         (its application ``i // attn_every``, with that application's KV
         cache).  With a cache, each layer reads and writes its (conv,
@@ -428,7 +464,8 @@ class DenseLM(nn.Module):
         policy (None: none)."""
         cfg = self.cfg
         every = cfg.attn_every                   # 0 in the ssm family
-        for i, layer in enumerate(self.layers):
+        for i, layer in enumerate(layers):
+            h = between_layers(h)
             if policy:
                 h = remat_call(partial(self._recurrent_unit, layer,
                                        positions,
@@ -442,6 +479,7 @@ class DenseLM(nn.Module):
                 h, _ = self.shared_attn(
                     h, cfg, positions, kv,
                     None if cache is None else cache["len"])
+                h = between_layers(h)
             state = None if cache is None else \
                 (cache["conv"][i], cache["h"][i])
             h = layer(h, cfg, state)
@@ -452,7 +490,25 @@ class DenseLM(nn.Module):
         shared block first when ``shared``, then ``layer``."""
         if shared:
             h, _ = self.shared_attn(h, self.cfg, positions)
+            h = between_layers(h)
         return layer(h, self.cfg)
+
+
+def gathered(layer: nn.Module, fsdp_spec):
+    """``layer``, or with ``fsdp_spec`` a callable that runs it on its
+    DTensor weights redistributed to the spec's placements (the FSDP
+    gather, differentiable: its backward scatters the gradients back);
+    plain weights stay as they are."""
+    if fsdp_spec is None:
+        return layer
+
+    def run(*args, **kwargs):
+        params = {n: p.redistribute(p.device_mesh,
+                                    placements(fsdp_spec[n], p.device_mesh))
+                  if isinstance(p, DTensor) else p
+                  for n, p in layer.named_parameters()}
+        return functional_call(layer, params, args, kwargs)
+    return run
 
 
 def _decoder_layer(layer, cfg: ModelConfig, positions, h, enc_out):
@@ -542,7 +598,15 @@ def loss_fn(logits, labels, aux=0.0, aux_weight: float = 0.01):
     single term."""
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    if isinstance(lg, DTensor):
+        # the reference's one-hot mask-and-reduce: vocab-sharded logits
+        # then sum their shards' terms (DTensor's gather leaves partial
+        # sums it cannot reduce)
+        hit = labels.long()[..., None] == torch.arange(lg.shape[-1],
+                                                       device=lg.device)
+        ll = (lg * hit).sum(dim=-1)
+    else:
+        ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - ll) + aux_weight * aux
 
 # ------------------------------------------------------- the weight carrier

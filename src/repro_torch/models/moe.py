@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import _dense_init
+from .layouts import laid_out_grad, replicated
 
 
 def init_moe(gen: torch.Generator, d_model: int, n_experts: int,
@@ -88,7 +89,10 @@ def moe_block(x, p, *, n_experts: int, top_k: int,
     B, S, D = x.shape
     T = B * S
     E, K = n_experts, top_k
-    xt = x.reshape(T, D)
+    # a DTensor's tokens are gathered for the dispatch: its running
+    # counts and slot writes span every token (DTensor has no rule that
+    # keeps them sharded)
+    xt = replicated(x.reshape(T, D))
     r = route(xt, p["router"], n_experts=E, top_k=K,
               capacity_factor=capacity_factor)
     if routes is not None:
@@ -103,8 +107,7 @@ def moe_block(x, p, *, n_experts: int, top_k: int,
     # K copies of each token are an expanded view, whose backward sums
     # them in a fixed order (`repeat_interleave`'s adds with atomics).
     x_rep = xt[:, None, :].expand(T, K, D).reshape(T * K, D)  # (T*K, D)
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device) \
-        .index_add(0, r.slot, x_rep)
+    buf = x.new_zeros((E * C + 1, D)).index_add(0, r.slot, x_rep)
     expert_in = buf[: E * C].reshape(E, C, D)
 
     h = F.silu(torch.bmm(expert_in, p["w_gate"])) \
@@ -116,4 +119,6 @@ def moe_block(x, p, *, n_experts: int, top_k: int,
     gathered = out_flat.index_select(0, r.slot)                # (T*K, D)
     weighted = gathered * r.gates.reshape(-1)[:, None].to(x.dtype)
     out = weighted.reshape(T, K, D).sum(dim=1)
+    # and the dispatch's backward takes the gradient whole too
+    out = laid_out_grad(out, replicated)
     return out.reshape(B, S, D), r.aux.to(x.dtype), r.topk_idx

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import _dense_init
+from .layouts import reduce_partials
 
 Params = Dict[str, torch.Tensor]
 
@@ -64,8 +65,10 @@ def _chunked(a, b, h0, chunk: int, reverse: bool = False):
     S = b.shape[1]
     chunk = max(1, min(chunk, S))
     starts = range(0, S, chunk)
+    # DTensor operands may hold partial sums, which the in-place adds
+    # below cannot take
+    b, carry = reduce_partials(b), reduce_partials(h0)
     out = torch.empty_like(b)
-    carry = h0
     for c0 in (reversed(starts) if reverse else starts):
         c1 = min(c0 + chunk, S)
         ac = a[:, c0 + 1:c1 + 1] if reverse else a[:, c0:c1]
@@ -164,8 +167,7 @@ def _recur(a, b, state, scan_chunk: int):
     whole sequence without ``state``; with it, from the state's ``h`` (one
     recurrence step at S = 1, as the reference's decode)."""
     if state is None:
-        h0 = torch.zeros((b.shape[0],) + b.shape[2:], dtype=torch.float32,
-                         device=b.device)
+        h0 = b.new_zeros((b.shape[0],) + b.shape[2:], dtype=torch.float32)
         return linear_scan(a, b, h0, scan_chunk)
     if b.shape[1] == 1:
         h = a[:, 0] * state[1] + b[:, 0]
@@ -185,7 +187,8 @@ def mamba1_block(x, p: Params, *, ssm_state: int, dt_rank: int,
                                  None if state is None else state[0])
     x_c = F.silu(x_c)
 
-    dbc = x_c @ p["x_proj"]
+    # a DTensor product over d_inner leaves partial sums: reduced once
+    dbc = reduce_partials(x_c @ p["x_proj"])
     dt, Bmat, Cmat = dbc.split([dt_rank, N, N], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])         # (B,S,di)
     A = -torch.exp(p["A_log"].float())                        # (di,N)

@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Dict, Mapping, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CHUNK = 1 << 26
 
@@ -31,7 +32,12 @@ class AdaGradState(NamedTuple):
 
 
 def _chunks(*ts: torch.Tensor):
-    """Matching flat chunks of equally shaped contiguous tensors (views)."""
+    """Matching flat chunks of equally shaped contiguous tensors (views).
+    DTensors come whole: each device's update is elementwise on its own
+    shard, and flattening a sharded tensor would gather it."""
+    if isinstance(ts[0], DTensor):
+        yield list(ts)
+        return
     flat = [t.reshape(-1) for t in ts]
     for f, t in zip(flat, ts):
         if not t.is_contiguous():

@@ -61,13 +61,19 @@ cuDNN when a step is built.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.parallel import loss_parallel
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.pm_forward import step_residual
+from repro_torch.launch.mesh import batch_axes
+from repro_torch.launch.sharding import batch_entry
 from repro_torch.models.losses import vocab_parallel_ce
 from repro_torch.models.model import loss_fn
 from repro_torch.optim.optimizers import (adagrad_init, adagrad_update,
@@ -86,7 +92,8 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
                     lr: float = 0.01, pm_miss_capacity: int = 0,
                     pm_strict: bool = False, pm_kernel: bool = False,
                     pm_backend=None, remat: bool = True,
-                    remat_policy: str = "full") -> Callable:
+                    remat_policy: str = "full", vp_loss_mesh=None,
+                    fsdp_spec=None) -> Callable:
     """Returns train_step(model, opt_state, batch) -> (loss, model, state).
 
     ``pm_miss_capacity > 0`` activates the intent-managed embedding path
@@ -98,7 +105,15 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
     mesh).  ``remat`` (the default, as the reference's): each layer is
     rematerialised in the backward with ``remat_policy`` ("full" or
     "dots", `models.model.DenseLM.forward`); the embedding lookup and the
-    encoder stay outside the rematerialised units."""
+    encoder stay outside the rematerialised units.
+
+    For a model whose weights are DTensors on a `DeviceMesh` (the dry
+    run, `launch.dryrun`): ``vp_loss_mesh``, that mesh, computes the
+    cross-entropy on vocab-sharded logits (DTensor's `loss_parallel`, the
+    twin of the reference's vocab-parallel loss; the logits are sharded
+    over "model" along the vocabulary and over the batch axes along the
+    batch); ``fsdp_spec`` gathers each layer's weights to its
+    tensor-parallel layout as the layer runs (`DenseLM.forward`)."""
     full_fp32_matmuls()
     update = adagrad_update if optimizer == "adagrad" else adam_update
     # sparse row updates need the gradient support to be exactly the batch
@@ -118,11 +133,20 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
                             pm_backend=pm_backend, pm_residual=residual,
                             embed_rows=embed_rows,
                             skip_head=vp_mesh is not None, remat=remat,
-                            remat_policy=remat_policy)
+                            remat_policy=remat_policy, fsdp_spec=fsdp_spec)
         if vp_mesh is not None:
             return vocab_parallel_ce(out, model.embed.T, batch["labels"],
                                      vp_mesh, aux=aux)
+        if vp_loss_mesh is not None:
+            return sharded_vocab_ce(out, batch["labels"], vp_loss_mesh, aux)
         return loss_fn(out, batch["labels"], aux)
+
+    def loss_and_grads(model, batch, residual, embed_rows=None):
+        # DTensor's vocab-parallel loss runs its backward in its context
+        with loss_parallel() if vp_loss_mesh is not None else nullcontext():
+            loss = run_loss(model, batch, residual, embed_rows)
+            loss.backward()
+        return loss
 
     def train_step(model, opt_state, batch):
         tokens = batch["tokens"]
@@ -137,9 +161,12 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
         model.zero_grad(set_to_none=True)
 
         if not sparse_embed:
-            loss = run_loss(model, batch, residual)
-            loss.backward()
-            grads = {k: p.grad for k, p in params.items()}
+            loss = loss_and_grads(model, batch, residual)
+            # a parameter the step does not use (a hybrid with no layer
+            # applying its shared block) has no gradient and keeps its
+            # value, as a zero gradient leaves it under AdaGrad
+            grads = {k: p.grad for k, p in params.items()
+                     if p.grad is not None}
             update(grads, opt_state, params, lr=lr)
             return loss.detach(), model, opt_state
 
@@ -158,11 +185,10 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
             else:
                 h0 = emb[tokens.long()]
         h0.requires_grad_(True)
-        loss = run_loss(model, batch, residual, embed_rows=h0)
-        loss.backward()
+        loss = loss_and_grads(model, batch, residual, embed_rows=h0)
         rest = {k: p for k, p in params.items() if k != "embed"}
-        adagrad_update({k: p.grad for k, p in rest.items()}, opt_state,
-                       rest, lr=lr)
+        adagrad_update({k: p.grad for k, p in rest.items()
+                        if p.grad is not None}, opt_state, rest, lr=lr)
         # fused sparse AdaGrad on exactly the touched (unique) rows, where
         # the row lives (`EmulatedBackend.update_rows`: the `adagrad_rows`
         # kernel, pads skipped; `MeshBackend.update_rows`: routed to the
@@ -181,29 +207,54 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
     return train_step
 
 
+def sharded_vocab_ce(logits, labels, mesh, aux=0.0,
+                     aux_weight: float = 0.01):
+    """`models.model.loss_fn` on DTensor logits (B, S, V) laid out with the
+    vocabulary over "model" and the batch over the batch axes, under
+    DTensor's `loss_parallel` (which the caller enters, backward
+    included): no device holds a row of full-vocabulary logits."""
+    lay = [Replicate()] * mesh.ndim
+    names = mesh.mesh_dim_names
+    lay[names.index("model")] = Shard(2)
+    if logits.shape[0] % batch_entry(mesh)[1] == 0:
+        for a in batch_axes(mesh):
+            lay[names.index(a)] = Shard(0)
+    lg = logits.float().redistribute(mesh, lay)
+    # the labels laid out as the logits' batch
+    labels = labels.redistribute(mesh, [
+        Shard(0) if pl.is_shard(0) else Replicate() for pl in lay])
+    # a sum over the tokens, then the mean: loss_parallel takes a mean
+    # only on a one-dimensional mesh
+    ce = F.cross_entropy(lg.flatten(0, 1), labels.long().flatten(0, 1),
+                         reduction="sum") / labels.numel()
+    return ce + aux_weight * aux
+
+
 def make_opt_init(optimizer: str = "adagrad") -> Callable:
     """``init(model) -> state`` over the model's named parameters."""
     init = adagrad_init if optimizer == "adagrad" else adam_init
     return lambda model: init(dict(model.named_parameters()))
 
 
-def make_prefill_step(cfg: ModelConfig, *, last_only: bool = False
-                      ) -> Callable:
+def make_prefill_step(cfg: ModelConfig, *, last_only: bool = False,
+                      fsdp_spec=None) -> Callable:
     """Forward-only prefill without a cache: ``prefill_step(model,
     batch)`` returns the last position's logits (B, V).  ``last_only``
     runs the head on the last position only, so the (B, S, V) logits are
-    never computed."""
+    never computed.  ``fsdp_spec``: as `make_train_step`'s."""
     full_fp32_matmuls()
 
     @torch.no_grad()
     def prefill_step(model, batch):
-        logits, _, _ = model(batch, head_last_only=last_only)
+        logits, _, _ = model(batch, head_last_only=last_only,
+                             fsdp_spec=fsdp_spec)
         return logits[:, -1]
 
     return prefill_step
 
 
-def make_prefill_decode_step(cfg: ModelConfig) -> Callable:
+def make_prefill_decode_step(cfg: ModelConfig, *, fsdp_spec=None
+                             ) -> Callable:
     """Fused prefill into a decode cache: ``prefill(model, cache,
     tokens (B, P), routes=None) -> (last logits (B, V), cache advanced by
     P)``.  The prompt runs as one chunked forward, for every family: the
@@ -224,7 +275,7 @@ def make_prefill_decode_step(cfg: ModelConfig) -> Callable:
     prompt must fit the cache.  ``routes``: a list to which each MoE
     layer appends its `moe.Routing`.  The encoder-decoder family reads
     ``cache["enc_out"]``, which the caller fills first
-    (`DenseLM.encode`)."""
+    (`DenseLM.encode`).  ``fsdp_spec``: as `make_train_step`'s."""
     full_fp32_matmuls()
 
     @torch.no_grad()
@@ -232,24 +283,25 @@ def make_prefill_decode_step(cfg: ModelConfig) -> Callable:
         P = tokens.shape[1]
         cache = {**cache, "len": cache["len"] + P}
         logits, _, new_cache = model({"tokens": tokens}, cache,
-                                     head_last_only=True, routes=routes)
+                                     head_last_only=True, routes=routes,
+                                     fsdp_spec=fsdp_spec)
         return logits[:, -1], new_cache
 
     return prefill_chunk
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable:
+def make_serve_step(cfg: ModelConfig, *, fsdp_spec=None) -> Callable:
     """One decode step: ``serve_step(model, cache, tokens (B, 1),
     routes=None) -> (logits (B, V), new cache)``, one token per sequence
     against the cache.  Advances ``cache["len"]`` itself (the new token
-    occupies position len)."""
+    occupies position len).  ``fsdp_spec``: as `make_train_step`'s."""
     full_fp32_matmuls()
 
     @torch.no_grad()
     def serve_step(model, cache, tokens, routes=None):
         cache = {**cache, "len": cache["len"] + 1}
         logits, _, new_cache = model({"tokens": tokens}, cache,
-                                     routes=routes)
+                                     routes=routes, fsdp_spec=fsdp_spec)
         return logits[:, -1], new_cache
 
     return serve_step

@@ -226,3 +226,74 @@ def fail_on_rank(bad: int) -> int:
         raise AssertionError(f"rank {bad}: check failed")
     dist.barrier()
     return dist.get_rank()
+
+
+def dtensor_train(archs, mesh_shapes, steps: int = 2, seed: int = 0) -> dict:
+    """For each arch (smoke config) and each mesh shape over ("data",
+    "model") of this group: the losses of ``steps`` training steps with
+    DTensor parameters and AdaGrad state placed by `launch.sharding`'s
+    specs (layers ZeRO-sharded over "data", and gathered to their
+    tensor-parallel layout as each layer runs: ``fsdp_spec``) and batches
+    placed by the batch specs, without and with the vocab-parallel loss
+    (``vp_loss_mesh``), beside the plain step's losses from the same
+    weights, warm accumulators and batches."""
+    from torch import nn
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.batches import make_batch
+    from repro_torch.launch.sharding import (batch_pspecs, param_pspecs,
+                                             placements)
+    from repro_torch.models.model import init_model
+    from repro_torch.optim.optimizers import AdaGradState
+    from repro_torch.train.steps import make_train_step
+
+    def run(cfg, mesh, vp=False):
+        model = init_model(cfg, torch.Generator().manual_seed(seed))
+        rng = np.random.default_rng(seed + 1)
+        accum = {n: torch.from_numpy((rng.uniform(0.5, 1.5, tuple(p.shape))
+                                      * 1e-4).astype(np.float32))
+                 for n, p in model.named_parameters()}
+        batches = [make_batch(cfg, 2, 16, np.random.default_rng(seed + i))
+                   for i in range(steps)]
+        fsdp = None
+        if mesh is not None:
+            specs = param_pspecs(dict(model.named_parameters()), cfg, mesh,
+                                 zero_layers=True)
+            fsdp = param_pspecs(dict(model.layers[0].named_parameters()),
+                                cfg, mesh, zero_layers=False)
+            for name, p in list(model.named_parameters()):
+                mod_name, _, leaf = name.rpartition(".")
+                mod = model.get_submodule(mod_name) if mod_name else model
+                setattr(mod, leaf, nn.Parameter(distribute_tensor(
+                    p.detach(), mesh, placements(specs[name], mesh))))
+            accum = {n: distribute_tensor(a, mesh,
+                                          placements(specs[n], mesh))
+                     for n, a in accum.items()}
+            bspec = batch_pspecs(cfg, mesh, batches[0])
+            batches = [{k: distribute_tensor(v, mesh,
+                                             placements(bspec[k], mesh))
+                        for k, v in b.items()} for b in batches]
+        step = make_train_step(cfg, lr=0.01, fsdp_spec=fsdp,
+                               vp_loss_mesh=mesh if vp else None)
+        opt = AdaGradState(accum)
+        losses = []
+        for b in batches:
+            with implicit_replication():
+                loss, _, _ = step(model, opt, b)
+            if isinstance(loss, DTensor):
+                loss = loss.full_tensor()
+            losses.append(float(loss))
+        return losses
+
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch, smoke=True)
+        plain = run(cfg, None)
+        for shape in mesh_shapes:
+            mesh = init_device_mesh("cpu", tuple(shape),
+                                    mesh_dim_names=("data", "model"))
+            for vp in (False, True):
+                out[(arch, tuple(shape), vp)] = (plain, run(cfg, mesh, vp))
+    return out

@@ -682,3 +682,38 @@ def test_mesh_runtime_on_the_card(dev, nccl):
     assert res.served > 0 and res.zero_served == 0
     for rid, rows in res.outputs.items():
         np.testing.assert_array_equal(rows, table[keys[rid]])
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_long_context_serve_steps_on_the_card_equal_the_cpu(dev, arch):
+    """`long_500k`'s decode step at the smoke configs: a cache of seeded
+    normals at ``len`` near its end, then one-token steps until it is
+    full, on the card against the CPU (logits and every cache tensor
+    within 2e-3, fp32 with TF32 off)."""
+    full_fp32_matmuls()
+    cfg = get_config(arch, smoke=True)
+    model = init_model(cfg, torch.Generator().manual_seed(0))
+    card = load_params(init_model(cfg, torch.Generator(device=dev)
+                                  .manual_seed(0)),
+                       {n: p.detach() for n, p in model.named_parameters()})
+    gen = torch.Generator().manual_seed(3)
+    cache = init_cache(cfg, 2, 48, device="cpu")
+    for name, t in cache.items():
+        if name != "len":
+            t.normal_(generator=gen).mul_(0.1 if name == "h" else 0.5)
+    cache["len"] = 45
+    on_card = {k: v.to(dev) if k != "len" else v for k, v in cache.items()}
+    serve = make_serve_step(cfg)
+    tok = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen,
+                        dtype=torch.int32)
+    for _ in range(3):
+        want, cache = serve(model, cache, tok)
+        got, on_card = serve(card, on_card, tok.to(dev))
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=2e-3, atol=2e-3)
+        tok = want.argmax(dim=-1, keepdim=True).to(torch.int32)
+    assert on_card["len"] == cache["len"] == 48
+    for name in set(cache) - {"len"}:
+        np.testing.assert_allclose(on_card[name].cpu().numpy(),
+                                   cache[name].numpy(), rtol=2e-3,
+                                   atol=2e-3, err_msg=name)

@@ -276,6 +276,19 @@ LONG_RTOL, LONG_ATOL = 1e-4, 1e-5
 DRYRUN_ARCHS = ("smollm-135m", "mixtral-8x22b", "qwen2-vl-7b",
                 ENCDEC_ARCH, SSM_ARCH, HYBRID_ARCH)
 DRYRUN_MULTI_POD = (SSM_ARCH, "long_500k")
+# the reference's hill-climb rungs of the paper's technique
+# (benchmarks/hillclimb.py), train_4k on the 16 x 16 mesh, after the
+# sweep: it3 (vocab-sharded embed/head, vocab-parallel loss), it4 (it3
+# and the intent-managed embedding), it6 (it4 and auto ZeRO layers), it5
+# (it6 and "dots" remat), each rung one CLI run of its architectures
+_IT3 = ["--no-zero-embed-head", "--vp-loss"]
+_IT4 = _IT3 + ["--pm-miss-capacity", "8192"]
+_IT6 = _IT4 + ["--auto-zero-layers"]
+DRYRUN_RUNGS = (
+    ("it3", ("nemotron-4-15b", "qwen3-moe-30b-a3b"), _IT3),
+    ("it4", ("nemotron-4-15b", "qwen3-moe-30b-a3b"), _IT4),
+    ("it6", ("nemotron-4-15b", "qwen3-moe-30b-a3b"), _IT6),
+    ("it5", ("nemotron-4-15b",), _IT6 + ["--remat-policy", "dots"]))
 
 
 def bits(x):
@@ -2092,23 +2105,13 @@ def long_decode(arch: str, dev) -> dict:
     return out
 
 
-def dry_run(tmp: Path) -> dict:
-    """The dry run (`repro_torch.launch.dryrun`) on the card's host, in
-    worker processes of its own (its fake process group never meets the
-    card's): DRYRUN_ARCHS through every shape on the 16 x 16 mesh, and
-    DRYRUN_MULTI_POD on the 2 x 16 x 16 mesh, at the same time.  Any
-    combination in error fails the phase.  Returns the records and the
-    counts."""
+def _dry_runs(runs: list, tmp: Path, tag: str) -> list:
+    """The dry-run CLI commands ``runs`` (each ending in ``--out FILE``),
+    started together and awaited; the records of each.  A command that
+    fails fails the phase with its log's end."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
-    jobs = max(1, (os.cpu_count() or 2) - 1)
-    arch, shape = DRYRUN_MULTI_POD
-    runs = [(cmd + ["--arch", arch, "--shape", shape, "--multi-pod",
-                    "--out", str(tmp / "multi_pod.json")]),
-            (cmd + ["--arch", *DRYRUN_ARCHS, "--jobs", str(jobs),
-                    "--out", str(tmp / "single_pod.json")])]
-    logs = [tmp / f"dryrun{i}.log" for i in range(len(runs))]
+    logs = [tmp / f"dryrun_{tag}{i}.log" for i in range(len(runs))]
     procs = []
     try:
         for c, log in zip(runs, logs):
@@ -2128,12 +2131,42 @@ def dry_run(tmp: Path) -> dict:
         if p.returncode != 0:
             raise RuntimeError(f"{' '.join(c[2:])} exited {p.returncode}:\n"
                                f"{log.read_text()[-4000:]}")
-        recs += json.loads(Path(c[-1]).read_text())
-    counts = {k: sum(r["status"] == k for r in recs)
+        recs.append(json.loads(Path(c[-1]).read_text()))
+    return recs
+
+
+def dry_run(tmp: Path) -> dict:
+    """The dry run (`repro_torch.launch.dryrun`) on the card's host, in
+    worker processes of its own (its fake process group never meets the
+    card's): DRYRUN_ARCHS through every shape on the 16 x 16 mesh, and
+    DRYRUN_MULTI_POD on the 2 x 16 x 16 mesh, at the same time; then the
+    rungs of DRYRUN_RUNGS, all at once.  Any combination in error fails
+    the phase.  Returns the records, the rungs' records (each with its
+    ``rung``) and the counts."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    jobs = max(1, (os.cpu_count() or 2) - 1)
+    arch, shape = DRYRUN_MULTI_POD
+    recs = sum(_dry_runs(
+        [cmd + ["--arch", arch, "--shape", shape, "--multi-pod",
+                "--out", str(tmp / "multi_pod.json")],
+         cmd + ["--arch", *DRYRUN_ARCHS, "--jobs", str(jobs),
+                "--out", str(tmp / "single_pod.json")]], tmp, "sweep"), [])
+    rung_runs = [cmd + ["--arch", *archs, "--shape", "train_4k", *knobs,
+                        "--jobs", str(len(archs)),
+                        "--out", str(tmp / f"rung_{name}.json")]
+                 for name, archs, knobs in DRYRUN_RUNGS]
+    rungs = [dict(r, rung=name) for (name, _, _), out in
+             zip(DRYRUN_RUNGS, _dry_runs(rung_runs, tmp, "rungs"))
+             for r in out]
+    counts = {k: sum(r["status"] == k for r in recs + rungs)
               for k in ("ok", "skipped", "error")}
-    if counts["error"]:
-        raise AssertionError(f"dry run: {counts}")
-    return {"records": recs, "counts": counts}
+    bad = [(r.get("rung"), r["arch"], r["shape"], r.get("error"))
+           for r in recs + rungs if r["status"] == "error"
+           or "rung" in r and r["status"] != "ok"]
+    if bad:
+        raise AssertionError(f"dry run: {counts}: {bad}")
+    return {"records": recs, "rungs": rungs, "counts": counts}
 
 
 SOURCE = {"embed_gather": "src/repro_torch/kernels/csrc/row_kernels.cu",
@@ -2391,9 +2424,19 @@ def main() -> int:
                 r["memory"]["argument_bytes"]
             keep["collective_bytes_per_op"] = r["collective_bytes_per_op"]
         print("[12/13] dry run " + json.dumps(keep), flush=True)
+    for r in dr["rungs"]:
+        keep = {k: r.get(k) for k in (
+            "rung", "arch", "shape", "mesh", "status", "pm_miss_capacity",
+            "zero_embed_head", "vp_loss", "zero_layers",
+            "zero_layers_effective", "remat_policy", "n_devices", "flops",
+            "collective_bytes", "collective_bytes_per_op", "trace_s")}
+        keep["argument_bytes_per_device"] = r["memory"]["argument_bytes"]
+        print("[12/13] dry run rung " + json.dumps(keep), flush=True)
     print("[12/13] dry run (host, fake process groups of 256 and 512 ranks): "
           + json.dumps(dict(dr["counts"], archs=list(DRYRUN_ARCHS),
-                            multi_pod=list(DRYRUN_MULTI_POD))), flush=True)
+                            multi_pod=list(DRYRUN_MULTI_POD),
+                            rungs=[[n, list(a)] for n, a, _ in
+                                   DRYRUN_RUNGS])), flush=True)
     phase("dry run")
 
     kernels = []

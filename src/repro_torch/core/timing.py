@@ -126,3 +126,12 @@ class ActionTimer:
         est = self._est(worker)
         lam = 2.0 * max(est.lam_hat, float(est.last_delta))
         return poisson_quantile(lam, self.p)
+
+    def should_act(self, worker: int, clock_now: int, c_start: int) -> bool:
+        """Algorithm 1 return: act on the intent in this round iff the worker
+        might reach ``c_start`` before the *next* round completes."""
+        return c_start < clock_now + self.horizon(worker)
+
+    def rate(self, worker: int) -> float:
+        """The worker's smoothed clock advance per round."""
+        return self._est(worker).lam_hat

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from .launch import as_int32, launcher, reject
 from .ref import pm_combine_ref
@@ -135,11 +136,11 @@ class _TorchOps:
 
     @staticmethod
     def zeros(shape, dtype, like):
-        return torch.zeros(shape, dtype=dtype, device=like.device)
+        return like.new_zeros(shape, dtype=dtype)
 
     @staticmethod
     def ones(shape, dtype, like):
-        return torch.ones(shape, dtype=dtype, device=like.device)
+        return like.new_ones(shape, dtype=dtype)
 
     @staticmethod
     def scatter_set(dst, idx, val):
@@ -207,7 +208,12 @@ def step_residual(cache_ids: torch.Tensor, tok: torch.Tensor,
     single stable argsort, on the tokens' device with no host sync.
     Compute once per managed step; every other consumer (backward
     pre-sum, sparse row optimizer) reads these tensors instead of
-    re-sorting."""
+    re-sorting.
+
+    DTensor tokens (the dry run, `launch.dryrun`) take
+    `_replicated_residual`."""
+    if isinstance(tok, DTensor):
+        return _replicated_residual(cache_ids, tok, miss_capacity)
     r = _compact_math(_TorchOps, cache_ids.to(torch.int32),
                       tok.to(torch.int32), miss_capacity)
     return StepResidual(
@@ -215,6 +221,30 @@ def step_residual(cache_ids: torch.Tensor, tok: torch.Tensor,
                            r["buf_slot"], r["n_miss"], r["overflow"]),
         sort=SortResidual(r["order"], r["sorted_ids"], r["seg_slot"]),
         n_uniq=r["n_uniq"])
+
+
+def _replicated_residual(cache_ids, tok: DTensor,
+                         miss_capacity: int) -> StepResidual:
+    """`step_residual` of DTensor tokens: the tokens gathered whole on
+    every device (one all-gather over the batch axes, T int32), the stage
+    run on each device's whole copy, and every output wrapped as a
+    replicated DTensor, equal to the plain stage's.  DTensor has no rule
+    for the binary search and the sort, and the buffer's slots depend on
+    every token of the step."""
+    mesh = tok.device_mesh
+    whole = [Replicate()] * mesh.ndim
+
+    def local(t):
+        return t.redistribute(mesh, whole).to_local() \
+            if isinstance(t, DTensor) else t
+
+    def wrap(t):
+        return DTensor.from_local(t, mesh, whole, run_check=False)
+
+    r = step_residual(local(cache_ids), local(tok), miss_capacity)
+    return StepResidual(probe=ProbeCompact(*map(wrap, r.probe)),
+                        sort=SortResidual(*map(wrap, r.sort)),
+                        n_uniq=wrap(r.n_uniq))
 
 
 def probe_and_compact(cache_ids: torch.Tensor, tok: torch.Tensor,

@@ -62,6 +62,19 @@ def scatter_rows_ref(base, ids, rows):
     return base.index_put_((ids[valid],), rows[valid].to(base.dtype))
 
 
+def segment_rows_ref(ids, grads, n_unique: int):
+    """Duplicate row gradients summed: ``(unique ids, sums)``, the unique
+    ids ascending and padded with -1 to ``n_unique``, and their summed
+    gradients (n_unique, D) in fp32, each row's added in token order
+    (`index_add_in_order`).  The reference for `ops.segment_rows`."""
+    uniq, inv = torch.unique(ids, return_inverse=True)
+    out = torch.zeros((n_unique, grads.shape[1]), dtype=torch.float32,
+                      device=grads.device)
+    index_add_in_order(out, inv, grads.float())
+    pad = uniq.new_full((n_unique - uniq.shape[0],), -1)
+    return torch.cat([uniq, pad])[:n_unique], out
+
+
 def index_add_in_order(out, index, src):
     """``out[index[i]] += src[i]`` for i in order, in place: the same bits
     on the CPU and on a card, in every run.  `index_add_` adds in that

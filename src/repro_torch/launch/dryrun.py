@@ -155,36 +155,59 @@ class StepCounter(TorchDispatchMode):
 
     FLOPs are counted at the level of whole tensors, from the global
     shapes (`torch.utils.flop_counter`'s formulas): an op on DTensors, or
-    an op on plain tensors outside any DTensor op, whose shards' own ops
+    an op on plain tensors outside any DTensor op; the shards' own ops
     are not counted again.  Collective bytes are the result sizes of the
     functional collectives DTensor issues on one device's shards, under
-    the reference's names (all-reduce twice)."""
+    the reference's names (all-reduce twice): those of an explicit
+    redistribution, and those DTensor makes inside an op to bring its
+    inputs to a layout its rule takes (`_ShardOps`)."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.collective_bytes = {name: 0 for name in COLLECTIVES}
-        self._inside = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        dt = any(isinstance(a, DTensor) for a in tree_leaves((args, kwargs)))
-        self._inside += dt
-        try:
+        if any(issubclass(t, DTensor) for t in types):
+            with _ShardOps(self):
+                out = func(*args, **kwargs)
+        else:
             out = func(*args, **kwargs)
-        finally:
-            self._inside -= dt
-        packet = func._overloadpacket
-        if (dt or not self._inside) and packet in flop_registry:
-            self.flops += int(flop_registry[packet](*args, **kwargs,
-                                                     out_val=out))
-        op = _FUNCOL.get(packet.__name__) \
+        if func._overloadpacket in flop_registry:
+            self.flops += int(flop_registry[func._overloadpacket](
+                *args, **kwargs, out_val=out))
+        self.collective(func, out)
+        return out
+
+    def collective(self, func, out) -> None:
+        """Counts ``out`` if ``func`` is a functional collective."""
+        op = _FUNCOL.get(func._overloadpacket.__name__) \
             if func.namespace in ("_c10d_functional", "c10d_functional") \
             else None
         if op is not None:
             n = sum(t.numel() * t.element_size() for t in tree_leaves(out)
                     if isinstance(t, torch.Tensor))
             self.collective_bytes[op] += (2 if op == "all-reduce" else 1) * n
+
+
+class _ShardOps(TorchDispatchMode):
+    """The mode of `StepCounter` while DTensor runs one of its ops (a mode
+    is off while its own handler runs): it lets every DTensor op through
+    to DTensor, whose dispatch comes after the modes' (as
+    `torch.distributed.tensor.debug.CommDebugMode` does), runs the
+    shards' ops, and hands the collectives among them to the counter."""
+
+    def __init__(self, counter: StepCounter):
+        super().__init__()
+        self.counter = counter
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if not isinstance(func, torch._ops.HigherOrderOperator):
+            self.counter.collective(func, out)
         return out
 
 
@@ -197,7 +220,9 @@ def depth_variants(cfg: ModelConfig, backward: bool = False
     layers count c + L a = (1 - L) T(0) + L T(1).  The hybrid's shared
     block adds ``b`` for each of its A applications: T(0) + L [T(1 layer
     without it) - T(0)] + A [T(1 layer after one application) - T(1
-    layer without it)].  The encoder-decoder's two stacks scale each by
+    layer without it)]; in training, where its gradients are summed and
+    its update made once a step, from one application and two.  The
+    encoder-decoder's two stacks scale each by
     its own count; with a ``backward`` (training), from one layer of each
     stack and two, since the encoder's backward runs only where a decoder
     layer reads its output, and the gradients of that output from the
@@ -219,8 +244,14 @@ def depth_variants(cfg: ModelConfig, backward: bool = False
                 (enc(zero, 1), E)]
     if cfg.family == "hybrid":
         A = n_attn_apps(cfg)
-        return [(zero, 1 - L),
-                (dataclasses.replace(one, attn_every=0), L - A), (one, A)]
+        bare = dataclasses.replace(one, attn_every=0)
+        if backward and A > 1:
+            # the shared block's gradients from its applications are
+            # summed, and its parameters updated, once a step: c + L a +
+            # A b + u, from one application and from two (two layers)
+            two = dataclasses.replace(cfg, n_layers=2, attn_every=1)
+            return [(zero, A - L), (bare, L - A), (one, 2 - A), (two, A - 1)]
+        return [(zero, 1 - L), (bare, L - A), (one, A)]
     return [(zero, 1 - L), (one, L)]
 
 
@@ -436,11 +467,14 @@ def dryrun_one(arch: str, shape_name, *, multi_pod: bool = False,
     if mesh is None:
         mesh = make_production_mesh(multi_pod=multi_pod)
     rec["zero_layers_effective"] = _zero_layers(cfg, mesh, knobs)
+    # the full depth's ZeRO decision holds at the cut depths too
+    traced = dataclasses.replace(knobs,
+                                 zero_layers=rec["zero_layers_effective"])
     flops = 0
     coll = {name: 0 for name in COLLECTIVES}
     depths = []
     for c, coef in depth_variants(cfg, shape.kind == "train"):
-        counts = trace_step(c, shape, mesh, knobs)
+        counts = trace_step(c, shape, mesh, traced)
         flops += coef * counts.flops
         for k, v in counts.collective_bytes.items():
             coll[k] += coef * v

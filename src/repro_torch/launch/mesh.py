@@ -144,6 +144,13 @@ def make_production_mesh(multi_pod: bool = False):
     return fake_mesh((16, 16), ("data", "model"))
 
 
+def make_host_mesh():
+    """The degenerate 1 x 1 ``("data", "model")`` mesh for runs on one
+    host device: a `DeviceMesh` over a one-rank ``"fake"`` process group
+    (`fake_mesh`), where every placement is whole and nothing moves."""
+    return fake_mesh((1, 1), ("data", "model"))
+
+
 def fake_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
     """A `DeviceMesh` of ``shape`` over ``names`` on a ``"fake"`` default
     process group of as many ranks, this process rank 0 (a fake group of

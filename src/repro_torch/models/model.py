@@ -367,7 +367,7 @@ class DenseLM(nn.Module):
         if embed_rows is not None:
             h = embed_rows
         elif pm_miss_capacity > 0 and "pm_cache_ids" in batch:
-            h = pm_lookup(self.embed, batch["pm_cache_ids"],
+            h = pm_lookup(self._table(), batch["pm_cache_ids"],
                           batch["pm_cache_rows"], tokens, pm_miss_capacity,
                           pm_strict, pm_kernel, pm_backend, pm_residual,
                           batch.get("pm_n_miss"), batch.get("pm_route_cap", 0))

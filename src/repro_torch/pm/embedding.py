@@ -29,6 +29,11 @@ rank's ``(V/n, D)`` block, the miss buffer moves through the routed
 owner-block gather, and the backward routes each summed row to its
 owner's block; the replica cache and the lookup's output are the same on
 every rank.
+
+A DTensor table (the dry run, `launch.dryrun`) takes DTensor's own
+collectives: a replicated index stage, a masked vocab-parallel miss
+buffer and a block-local backward (`_vocab_parallel_rows`,
+`_block_row_grads`).
 """
 
 from __future__ import annotations
@@ -37,11 +42,14 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.pm_forward import (SortResidual, StepResidual,
                                             host_compact, probe_and_compact,
                                             step_residual)
+from repro_torch.models.layouts import reduce_partials, replicated
 from repro_torch.pm.collectives import resolve
 
 
@@ -117,6 +125,10 @@ def _lookup_impl(table, cache_ids, cache_rows, tokens, miss_capacity,
     if residual is None:
         residual = step_residual(cache_ids, tok, M)
     pc = residual.probe
+    if isinstance(table, DTensor):
+        return _vocab_parallel_rows(
+            table, cache_rows, tokens, pc, strict=strict, n_miss=n_miss, M=M,
+            kernel=kernel, backend=backend), residual
     out = combine_miss_buffer(backend, table, cache_rows, pc.hit,
                               pc.cache_slot, pc.buf_ids, pc.buf_slot,
                               kernel=kernel, n_miss=pc.n_miss,
@@ -133,6 +145,82 @@ def _lookup_impl(table, cache_ids, cache_rows, tokens, miss_capacity,
     return out.reshape(B, S, table.shape[1]), residual
 
 
+def _vocab_parallel_rows(table: DTensor, cache_rows, tokens: DTensor, pc, *,
+                         strict, n_miss, M, kernel, backend) -> DTensor:
+    """`_lookup_impl`'s rows on a DTensor table (the dry run): the (M, D)
+    miss buffer comes from DTensor's masked vocab-parallel lookup, whose
+    partial sums one reduction over "model" completes (the (V, D) table
+    is never gathered), whole on every device; then each device runs the
+    plain `pm_combine` on its own tokens (the replicated index stage's
+    per-token slots cut to the tokens' layout, which moves nothing)
+    against the replicated cache rows and buffer.  Returns (B, S, D) in
+    the tokens' layout, whole along D.  Without ``strict`` the overflow
+    tokens read the same vocab-parallel lookup of their own ids, as the
+    plain dense fallback does."""
+    if kernel or backend is not None:
+        raise ValueError("a DTensor table takes DTensor's collectives: "
+                         "pm_kernel=False and no pm_backend")
+    mesh = tokens.device_mesh
+    B, S = tokens.shape
+    D = table.shape[1]
+
+    def mine(t):
+        """A replicated per-token (T,) tensor cut to this device's
+        tokens, (B', S')."""
+        t = DTensor.from_local(t.to_local().view(B, S), mesh,
+                               [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, tokens.placements).to_local()
+
+    buf = replicated(reduce_partials(
+        F.embedding(pc.buf_ids.long(), table))).to_local()
+    buffer = torch.cat([buf, buf.new_zeros((1, D))])
+    hit = mine(pc.hit)
+    rows = ops.pm_combine(hit.reshape(-1), mine(pc.cache_slot).reshape(-1),
+                          mine(pc.buf_slot).reshape(-1),
+                          replicated(cache_rows).to_local(), buffer,
+                          use_kernel=False)
+    rows = rows.view(*hit.shape, D)
+    if not strict and (n_miss is None or n_miss > M):
+        dense = reduce_partials(F.embedding(tokens.long(), table))
+        dense = dense.redistribute(mesh, tokens.placements).to_local()
+        rows = torch.where(mine(pc.overflow)[..., None], dense, rows)
+    return DTensor.from_local(rows, mesh, tokens.placements,
+                              run_check=False, shape=(B, S, D),
+                              stride=(S * D, D, 1))
+
+
+def _block_row_grads(layout, tokens: DTensor, g: DTensor) -> DTensor:
+    """The table gradient of `_vocab_parallel_rows`, in the table's own
+    placements (``layout``: its mesh, placements and shape): each device
+    adds the gradients of its tokens that fall in its vocab block into a
+    block-sized partial, in token order (`ref.index_add_in_order`), and
+    the partials are reduced over the axes that split the tokens.  On
+    the axes that split the vocabulary the tokens are gathered first,
+    since a block may hold any of them.  No device holds a (V, D)
+    gradient unless it holds the whole table."""
+    mesh, table_pl, (V, D) = layout
+    lay = [Replicate() if tp.is_shard(0) else pl
+           for tp, pl in zip(table_pl, tokens.placements)]
+    tok = tokens.redistribute(mesh, lay).to_local().reshape(-1).long()
+    gl = g.redistribute(mesh, lay).to_local().reshape(-1, D)
+    lo, n = 0, V
+    coord = mesh.get_coordinate()
+    for i, tp in enumerate(table_pl):
+        if tp.is_shard(0):    # DTensor's chunks: ceil-sized, in mesh order
+            step = -(-n // mesh.size(i))
+            start = min(coord[i] * step, n)
+            lo, n = lo + start, min(step, n - start)
+    ids = tok - lo
+    ids = torch.where((ids >= 0) & (ids < n), ids, n)
+    block = ref.index_add_in_order(gl.new_zeros((n + 1, D)), ids, gl)[:n]
+    grad_pl = [Shard(0) if tp.is_shard(0) else
+               Partial() if pl.is_shard() else Replicate()
+               for tp, pl in zip(table_pl, lay)]
+    return DTensor.from_local(block, mesh, grad_pl, run_check=False,
+                              shape=(V, D), stride=(D, 1)
+                              ).redistribute(mesh, table_pl)
+
+
 class _PMLookup(torch.autograd.Function):
     """`pm_lookup` with its custom backward (the reference's
     ``jax.custom_vjp``)."""
@@ -146,6 +234,9 @@ class _PMLookup(torch.autograd.Function):
         # the sort residual rides to the backward so the duplicate
         # pre-sum never re-sorts the tokens the forward already sorted
         ctx.save_for_backward(tokens, *residual.sort)
+        if isinstance(table, DTensor):
+            ctx.table_layout = (table.device_mesh, table.placements,
+                                table.shape)
         be = resolve(backend)    # on the mesh, table is this rank's block
         ctx.vocab = table.shape[0] * (be.n_shards if be.mesh_real else 1)
         ctx.kernel, ctx.backend = kernel, backend
@@ -154,6 +245,9 @@ class _PMLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         tokens, order, sorted_ids, slot = ctx.saved_tensors
+        if isinstance(g, DTensor):
+            return (_block_row_grads(ctx.table_layout, tokens, g),) \
+                + (None,) * 10
         V = ctx.vocab
         T = tokens.numel()
         tok = tokens.reshape(T)
@@ -189,7 +283,11 @@ def pm_lookup(table, cache_ids, cache_rows, tokens, miss_capacity: int,
     these (cache_ids, tokens); left None, the lookup derives it (still one
     sort: the backward reuses the forward's).  ``route_cap``: the mesh's
     routed block for this batch's misses, decided on the host from intent
-    (`combine_miss_buffer`).  Returns (B, S, D) rows."""
+    (`combine_miss_buffer`).  Returns (B, S, D) rows.
+
+    A DTensor ``table`` (the dry run), with DTensor ``tokens`` and cache,
+    takes DTensor's collectives (`_vocab_parallel_rows`,
+    `_block_row_grads`)."""
     return _PMLookup.apply(table, cache_ids, cache_rows, tokens,
                            miss_capacity, strict, kernel, backend, residual,
                            n_miss, route_cap)

@@ -66,7 +66,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.parallel import loss_parallel
 
 from repro_torch.configs.base import ModelConfig
@@ -212,22 +212,31 @@ def sharded_vocab_ce(logits, labels, mesh, aux=0.0,
     """`models.model.loss_fn` on DTensor logits (B, S, V) laid out with the
     vocabulary over "model" and the batch over the batch axes, under
     DTensor's `loss_parallel` (which the caller enters, backward
-    included): no device holds a row of full-vocabulary logits."""
+    included): no device holds a row of full-vocabulary logits.
+    `loss_parallel` takes logits on a one-dimensional mesh only (torch
+    2.11), so each device's batch shard is cross-entropied on the
+    "model" mesh alone, and the shards' sums meet as partial sums over
+    the batch axes."""
     lay = [Replicate()] * mesh.ndim
     names = mesh.mesh_dim_names
     lay[names.index("model")] = Shard(2)
     if logits.shape[0] % batch_entry(mesh)[1] == 0:
         for a in batch_axes(mesh):
             lay[names.index(a)] = Shard(0)
-    lg = logits.float().redistribute(mesh, lay)
+    lg = logits.float().redistribute(mesh, lay).to_local()
     # the labels laid out as the logits' batch
     labels = labels.redistribute(mesh, [
         Shard(0) if pl.is_shard(0) else Replicate() for pl in lay])
-    # a sum over the tokens, then the mean: loss_parallel takes a mean
-    # only on a one-dimensional mesh
-    ce = F.cross_entropy(lg.flatten(0, 1), labels.long().flatten(0, 1),
-                         reduction="sum") / labels.numel()
-    return ce + aux_weight * aux
+    row = mesh["model"]
+    lg = DTensor.from_local(lg, row, [Shard(2)], run_check=False)
+    tgt = DTensor.from_local(labels.to_local().long(), row, [Replicate()],
+                             run_check=False)
+    ce = F.cross_entropy(lg.flatten(0, 1), tgt.flatten(0, 1),
+                         reduction="sum").to_local()
+    ce = DTensor.from_local(ce, mesh, [
+        Partial() if pl.is_shard(0) else Replicate() for pl in lay],
+        run_check=False)
+    return ce / labels.numel() + aux_weight * aux
 
 
 def make_opt_init(optimizer: str = "adagrad") -> Callable:

@@ -228,6 +228,72 @@ def fail_on_rank(bad: int) -> int:
     return dist.get_rank()
 
 
+def _dtensor_setup(cfg, steps: int, seed: int, mesh, pm: int = 0,
+                   accum_scale: float = 1e-4):
+    """The model, warm AdaGrad accumulators and ``steps`` batches of a
+    DTensor training run (``mesh`` None: plain tensors), and the FSDP
+    spec: parameters and accumulators placed by `launch.sharding`'s specs
+    (layers ZeRO-sharded over "data"), batches by the batch specs.
+    ``pm``: each batch carries a replica cache of 6 of its first batch's
+    ids and one pad, whose rows are the initial table's.  The
+    accumulators are uniform in [0.5, 1.5) times ``accum_scale``."""
+    from torch import nn
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.data.batches import make_batch
+    from repro_torch.launch.sharding import (batch_pspecs, param_pspecs,
+                                             placements)
+    from repro_torch.models.model import init_model
+    from repro_torch.pm.embedding import make_state
+
+    model = init_model(cfg, torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed + 1)
+    accum = {n: torch.from_numpy((rng.uniform(0.5, 1.5, tuple(p.shape))
+                                  * accum_scale).astype(np.float32))
+             for n, p in model.named_parameters()}
+    batches = [make_batch(cfg, 2, 16, np.random.default_rng(seed + i))
+               for i in range(steps)]
+    if pm:
+        ids = np.unique(batches[0]["tokens"].numpy())[::3][:6]
+        cache = torch.from_numpy(np.append(ids, cfg.vocab_size)
+                                 .astype(np.int32))
+        state = make_state(model.embed.detach(), cache)
+        batches = [dict(b, pm_cache_ids=state.cache_ids,
+                        pm_cache_rows=state.cache_rows) for b in batches]
+    fsdp = None
+    if mesh is not None:
+        specs = param_pspecs(dict(model.named_parameters()), cfg, mesh,
+                             zero_layers=True)
+        fsdp = param_pspecs(dict(model.layers[0].named_parameters()),
+                            cfg, mesh, zero_layers=False)
+        for name, p in list(model.named_parameters()):
+            mod_name, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(mod_name) if mod_name else model
+            setattr(mod, leaf, nn.Parameter(distribute_tensor(
+                p.detach(), mesh, placements(specs[name], mesh))))
+        accum = {n: distribute_tensor(a, mesh, placements(specs[n], mesh))
+                 for n, a in accum.items()}
+        bspec = batch_pspecs(cfg, mesh, batches[0])
+        batches = [{k: distribute_tensor(v, mesh,
+                                         placements(bspec[k], mesh))
+                    for k, v in b.items()} for b in batches]
+    return model, accum, batches, fsdp
+
+
+def _losses(step, model, accum, batches) -> list:
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.optim.optimizers import AdaGradState
+    opt = AdaGradState(accum)
+    losses = []
+    for b in batches:
+        with implicit_replication():
+            loss, _, _ = step(model, opt, b)
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
+        losses.append(float(loss))
+    return losses
+
+
 def dtensor_train(archs, mesh_shapes, steps: int = 2, seed: int = 0) -> dict:
     """For each arch (smoke config) and each mesh shape over ("data",
     "model") of this group: the losses of ``steps`` training steps with
@@ -237,55 +303,15 @@ def dtensor_train(archs, mesh_shapes, steps: int = 2, seed: int = 0) -> dict:
     placed by the batch specs, without and with the vocab-parallel loss
     (``vp_loss_mesh``), beside the plain step's losses from the same
     weights, warm accumulators and batches."""
-    from torch import nn
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import DTensor, distribute_tensor
-    from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.configs.registry import get_config
-    from repro_torch.data.batches import make_batch
-    from repro_torch.launch.sharding import (batch_pspecs, param_pspecs,
-                                             placements)
-    from repro_torch.models.model import init_model
-    from repro_torch.optim.optimizers import AdaGradState
     from repro_torch.train.steps import make_train_step
 
     def run(cfg, mesh, vp=False):
-        model = init_model(cfg, torch.Generator().manual_seed(seed))
-        rng = np.random.default_rng(seed + 1)
-        accum = {n: torch.from_numpy((rng.uniform(0.5, 1.5, tuple(p.shape))
-                                      * 1e-4).astype(np.float32))
-                 for n, p in model.named_parameters()}
-        batches = [make_batch(cfg, 2, 16, np.random.default_rng(seed + i))
-                   for i in range(steps)]
-        fsdp = None
-        if mesh is not None:
-            specs = param_pspecs(dict(model.named_parameters()), cfg, mesh,
-                                 zero_layers=True)
-            fsdp = param_pspecs(dict(model.layers[0].named_parameters()),
-                                cfg, mesh, zero_layers=False)
-            for name, p in list(model.named_parameters()):
-                mod_name, _, leaf = name.rpartition(".")
-                mod = model.get_submodule(mod_name) if mod_name else model
-                setattr(mod, leaf, nn.Parameter(distribute_tensor(
-                    p.detach(), mesh, placements(specs[name], mesh))))
-            accum = {n: distribute_tensor(a, mesh,
-                                          placements(specs[n], mesh))
-                     for n, a in accum.items()}
-            bspec = batch_pspecs(cfg, mesh, batches[0])
-            batches = [{k: distribute_tensor(v, mesh,
-                                             placements(bspec[k], mesh))
-                        for k, v in b.items()} for b in batches]
+        model, accum, batches, fsdp = _dtensor_setup(cfg, steps, seed, mesh)
         step = make_train_step(cfg, lr=0.01, fsdp_spec=fsdp,
                                vp_loss_mesh=mesh if vp else None)
-        opt = AdaGradState(accum)
-        losses = []
-        for b in batches:
-            with implicit_replication():
-                loss, _, _ = step(model, opt, b)
-            if isinstance(loss, DTensor):
-                loss = loss.full_tensor()
-            losses.append(float(loss))
-        return losses
+        return _losses(step, model, accum, batches)
 
     out = {}
     for arch in archs:
@@ -296,4 +322,79 @@ def dtensor_train(archs, mesh_shapes, steps: int = 2, seed: int = 0) -> dict:
                                     mesh_dim_names=("data", "model"))
             for vp in (False, True):
                 out[(arch, tuple(shape), vp)] = (plain, run(cfg, mesh, vp))
+    return out
+
+
+def dtensor_pm_train(archs, mesh_shapes, steps: int = 2, seed: int = 0
+                     ) -> dict:
+    """The intent-managed embedding with DTensor parameters and batches,
+    as `dtensor_train` places them, beside the plain one, strict and not,
+    for each arch and mesh shape, each result as (plain, DTensor):
+
+    * ``stage``: every output of the index stage (`step_residual` on the
+      placed tokens, whole), 16 slots for 32 tokens, so some unique
+      misses overflow;
+    * ``rows`` / ``grad``: the lookup's rows and the table's gradient
+      (whole) for an integer-valued upstream gradient, whose sums are
+      exact in any order;
+    * ``losses`` / ``embed``: ``steps`` managed training steps and the
+      updated table (whole), strict with 32 slots (no overflow: a strict
+      step's overflow tokens read the all-zero trash row, whose gradient
+      through the first norm is about 1/sqrt(eps), and the sharded
+      matmuls' rounding, scaled by it, would swamp the comparison) and
+      not strict with 16 (the overflow tokens read the dense fallback).
+
+    The accumulators start near 1, where AdaGrad's step is about ``lr *
+    g``: near 1e-4, as `dtensor_train` starts them, a gradient entry of
+    about 1e-2 moves its row by about itself, and the sharded matmuls'
+    rounding alone (the unmanaged step's too) moves table entries by up
+    to 1e-6."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.pm_forward import step_residual
+    from repro_torch.pm.embedding import pm_lookup
+    from repro_torch.train.steps import make_train_step
+
+    def whole(t):
+        t = t.detach()
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def lookup(model, batch, strict, g):
+        table = model.embed.detach().requires_grad_(True)
+        if hasattr(batch["tokens"], "placements"):
+            g = distribute_tensor(g, batch["tokens"].device_mesh,
+                                  batch["tokens"].placements)
+        rows = pm_lookup(table, batch["pm_cache_ids"],
+                         batch["pm_cache_rows"], batch["tokens"], 16, strict)
+        rows.backward(g)
+        return whole(rows), whole(table.grad)
+
+    def run(cfg, mesh, strict):
+        model, accum, batches, fsdp = _dtensor_setup(
+            cfg, steps, seed, mesh, pm=True, accum_scale=1.0)
+        b = batches[0]
+        r = step_residual(b["pm_cache_ids"], b["tokens"].reshape(-1), 16)
+        g = torch.from_numpy(np.random.default_rng(seed).integers(
+            -4, 5, (2, 16, cfg.d_model)).astype(np.float32))
+        rows, grad = lookup(model, b, strict, g)
+        step = make_train_step(cfg, lr=0.01, fsdp_spec=fsdp,
+                               pm_miss_capacity=16 if not strict else 32,
+                               pm_strict=strict)
+        losses = _losses(step, model, accum, batches)
+        return dict(stage=[whole(t) for t in (*r.probe, *r.sort, r.n_uniq)],
+                    rows=rows, grad=grad, losses=losses,
+                    embed=whole(model.embed))
+
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch, smoke=True)
+        for strict in (True, False):
+            plain = run(cfg, None, strict)
+            for shape in mesh_shapes:
+                mesh = init_device_mesh("cpu", tuple(shape),
+                                        mesh_dim_names=("data", "model"))
+                dt = run(cfg, mesh, strict)
+                out[(arch, tuple(shape), strict)] = {
+                    k: (plain[k], dt[k]) for k in plain}
     return out

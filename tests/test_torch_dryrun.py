@@ -21,6 +21,7 @@ mesh, as the reference's slow test does.
 
 import dataclasses
 import json
+from collections import Counter
 import os
 import subprocess
 import sys
@@ -67,11 +68,15 @@ def mesh():
         dist.destroy_process_group()
 
 
-def reference_argument_bytes(arch: str, shape: InputShape) -> int:
+def reference_argument_bytes(arch: str, shape: InputShape, *,
+                             pm_miss_capacity: int = 0,
+                             zero_embed_head: bool = True) -> int:
     """One device's bytes of the step's arguments from the reference's
     specs on a stand-in 2 x 2 mesh: parameters in bf16 (and fp32
     AdaGrad accumulators when training) and the inputs (the cache's
-    ``len``, a host integer in the port, left out)."""
+    ``len``, a host integer in the port, left out; with
+    ``pm_miss_capacity``, the replica cache's ids and rows that the
+    reference's dry run adds to the batch)."""
     jcfg = jget_config(arch, smoke=True)
     jmesh = SimpleNamespace(axis_names=("data", "model"),
                             shape={"data": 2, "model": 2})
@@ -92,12 +97,19 @@ def reference_argument_bytes(arch: str, shape: InputShape) -> int:
             is_leaf=lambda x: isinstance(x, jax.ShapeDtypeStruct))))
 
     p = jdryrun.params_specs(jcfg)
-    pspec = jsharding.param_pspecs(p, jcfg, jmesh, zero_layers=True)
+    pspec = jsharding.param_pspecs(p, jcfg, jmesh, zero_layers=True,
+                                   zero_embed_head=zero_embed_head)
     n = total(p, pspec)
     if shape.kind == "train":
         n += total(jax.tree_util.tree_map(
             lambda s: jax.ShapeDtypeStruct(s.shape, np.float32), p), pspec)
     inputs = jdryrun.input_specs(jcfg, shape)
+    if pm_miss_capacity:
+        C = 4096
+        inputs = dict(inputs,
+                      pm_cache_ids=jax.ShapeDtypeStruct((C,), np.int32),
+                      pm_cache_rows=jax.ShapeDtypeStruct(
+                          (C, jcfg.d_model), jdryrun.PARAM_DTYPE))
     if shape.kind != "decode":
         return n + total(inputs, jsharding.batch_pspecs(jcfg, jmesh, inputs))
     cache = {k: v for k, v in inputs["cache"].items() if k != "len"}
@@ -176,6 +188,95 @@ def test_knobs(mesh, knobs):
         assert rec["flops"] == base["flops"]
 
 
+@pytest.mark.parametrize("zero_embed_head", [True, False])
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-30b-a3b",
+                                  "falcon-mamba-7b"])
+def test_managed_step_on_a_fake_mesh(mesh, monkeypatch, arch,
+                                     zero_embed_head):
+    """The intent-managed embedding (``pm_miss_capacity``, strict, as the
+    reference's dry run passes it) through the training step: the
+    argument bytes with the replica cache in the batch, the scaled counts
+    and the FLOPs as for the unmanaged step, and no all-gather of the
+    table's rows (the buffer comes from a masked lookup and the backward
+    stays in each device's vocab block): of the all-gathers the managed
+    step adds to the unmanaged step's, none gives V rows."""
+    shape = SHAPES["train"]
+    knobs = dict(pm_miss_capacity=16, zero_embed_head=zero_embed_head)
+    rec = dryrun.dryrun_one(arch, shape, smoke=True, mesh=mesh,
+                            verbose=False, **knobs)
+    assert rec["status"] == "ok" and rec["pm_miss_capacity"] == 16
+    assert rec["memory"]["argument_bytes"] == \
+        reference_argument_bytes(arch, shape, **knobs)
+    cfg = get_config(arch, smoke=True)
+    gathered = []
+    count = dryrun.StepCounter.collective
+
+    def collective(self, func, out):
+        if "all_gather" in func._overloadpacket.__name__:
+            gathered.append(tuple(out.shape))
+        count(self, func, out)
+
+    monkeypatch.setattr(dryrun.StepCounter, "collective", collective)
+    full = dryrun.trace_step(cfg, shape, mesh, dryrun.Knobs(**knobs))
+    assert rec["flops"] == full.flops > 0
+    assert rec["collective_bytes_per_op"] == full.collective_bytes
+    managed, gathered[:] = Counter(gathered), []
+    dryrun.trace_step(cfg, shape, mesh,
+                      dryrun.Knobs(zero_embed_head=zero_embed_head))
+    added = managed - Counter(gathered)
+    assert added and not [s for s in added if s[0] == cfg.vocab_size]
+    with FlopCounterMode(display=False) as fc:
+        plain = dryrun.trace_step(cfg, shape, mesh, dryrun.Knobs(**knobs),
+                                  distributed=False)
+    assert rec["flops"] == plain.flops == fc.get_total_flops()
+
+
+def test_auto_zero_is_decided_at_the_full_depth(mesh, monkeypatch):
+    """``zero_layers=None`` (auto): the full config's decision holds in
+    the traces at cut depth, whose own parameter counts would decide
+    otherwise."""
+    from repro_torch.launch import sharding
+    deep = lambda cfg, mesh: cfg.n_layers >= 2       # noqa: E731
+    monkeypatch.setattr(dryrun, "needs_zero", deep)
+    monkeypatch.setattr(sharding, "needs_zero", deep)
+    kw = dict(smoke=True, mesh=mesh, verbose=False)
+    auto = dryrun.dryrun_one("qwen3-moe-30b-a3b", SHAPES["train"],
+                             zero_layers=None, **kw)
+    on = dryrun.dryrun_one("qwen3-moe-30b-a3b", SHAPES["train"],
+                           zero_layers=True, **kw)
+    assert auto["zero_layers"] == "auto" and auto["zero_layers_effective"]
+    for k in ("flops", "collective_bytes_per_op", "memory"):
+        assert auto[k] == on[k], k
+
+
+def test_counter_sees_the_collectives_inside_an_op(mesh):
+    """A collective DTensor makes inside an op (here the all-gather of a
+    weight ZeRO-sharded along the contraction, which the product's rule
+    cannot take) is counted as an explicit redistribution's is, once, as
+    `CommDebugMode` counts it."""
+    import torch
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    fakes = dryrun._Fakes(mesh)
+    x = fakes.dtensor((8, 16, 64), torch.bfloat16, ("data", None, None))
+    for spec, n in ((("data", "model"), 1), ((None, "model"), 0)):
+        w = fakes.dtensor((64, 128), torch.bfloat16, spec)
+        counter, comm = dryrun.StepCounter(), CommDebugMode()
+        with implicit_replication(), counter:
+            y = x @ w
+        with implicit_replication(), comm:
+            x @ w
+        assert comm.get_total_counts() == n
+        # the (64, 64) bf16 block of w whole over "data"
+        assert counter.collective_bytes["all-gather"] == n * 64 * 64 * 2
+        assert counter.flops == 2 * 8 * 16 * 64 * 128
+        with implicit_replication(), counter:
+            y.redistribute(mesh, [Replicate(), Replicate()])
+        assert counter.collective_bytes["all-gather"] == \
+            n * 64 * 64 * 2 + 8 * 16 * 64 * 2 + 8 * 16 * 128 * 2
+
+
 def test_no_collective_on_one_device():
     one = fake_mesh((1, 1), ("data", "model"))
     try:
@@ -185,6 +286,25 @@ def test_no_collective_on_one_device():
         dist.destroy_process_group()
     assert rec["status"] == "ok" and rec["n_devices"] == 1
     assert rec["collective_bytes"] == 0 and rec["flops"] > 0
+
+
+def test_host_mesh_matches_reference():
+    """`launch.mesh.make_host_mesh`: the reference's degenerate mesh, a
+    1 x 1 ("data", "model") `DeviceMesh`, on which the training step's
+    DTensors stay whole."""
+    from repro.launch.mesh import make_host_mesh as jmake_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, mesh_axes
+    try:
+        host = make_host_mesh()
+        assert mesh_axes(host) == dict(jmake_host_mesh().shape) \
+            == {"data": 1, "model": 1}
+        rec = dryrun.dryrun_one("falcon-mamba-7b", SHAPES["train"],
+                                smoke=True, mesh=host, verbose=False,
+                                pm_miss_capacity=16)
+    finally:
+        dist.destroy_process_group()
+    assert rec["status"] == "ok" and rec["mesh"] == "1x1"
+    assert rec["collective_bytes"] == 0
 
 
 def test_a_real_process_group_is_not_replaced(tmp_path):
@@ -213,6 +333,41 @@ def test_fsdp_gather_on_two_gloo_ranks():
         assert len(plain) == len(dt) == 2
         np.testing.assert_allclose(dt, plain, rtol=1e-6,
                                    err_msg=f"{arch} on {shape}, vp {vp}")
+
+
+def test_managed_step_on_two_gloo_ranks():
+    """The managed embedding with DTensor parameters and batches
+    (`_mesh_ranks.dtensor_pm_train`), strict and not, on a (1, 2) mesh
+    (the table's vocab over "model") and a (2, 1) mesh (the tokens over
+    "data", the table's width ZeRO-sharded there): the index stage, the
+    lookup's rows and the table's gradient (for an integer-valued
+    upstream gradient) equal to the plain ones exactly; the losses of
+    two managed training steps and the updated table within rtol 1e-6 of
+    the plain managed step's, a table entry near zero held at the
+    table's scale (atol 1e-6 of its largest entry: the sharded matmuls'
+    sums round apart by an ulp of that scale).  The plain managed step is
+    held to JAX's by the loop tests."""
+    archs = ("smollm-135m", "falcon-mamba-7b")
+    shapes = ((1, 2), (2, 1))
+    outs = run_ranks(R.dtensor_pm_train, 2, archs, shapes, timeout_s=300)
+    assert len(outs[0]) == len(archs) * len(shapes) * 2
+    for key, r in outs[0].items():
+        for o in outs[1:]:                       # every rank the same
+            np.testing.assert_array_equal(o[key]["embed"][1],
+                                          r["embed"][1])
+        plain, dt = r["stage"]
+        assert len(plain) == len(dt) == 10
+        for a, b in zip(plain, dt):
+            assert a.dtype == b.dtype and a.equal(b), key
+        for name in ("rows", "grad"):
+            np.testing.assert_array_equal(r[name][1], r[name][0],
+                                          err_msg=f"{key} {name}")
+        (p_loss, loss), (p_embed, embed) = r["losses"], r["embed"]
+        assert len(loss) == 2
+        np.testing.assert_allclose(loss, p_loss, rtol=1e-6, err_msg=key)
+        np.testing.assert_allclose(embed, p_embed, rtol=1e-6,
+                                   atol=1e-6 * p_embed.abs().max().item(),
+                                   err_msg=key)
 
 
 def test_cli_on_the_production_mesh(tmp_path):

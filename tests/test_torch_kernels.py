@@ -107,3 +107,23 @@ def test_cpu_path_counts_no_launches():
     assert ops.launch_counts() == {"embed_gather": 0, "pm_combine": 0,
                                    "adagrad_rows": 0, "scatter_rows": 0,
                                    "segment_scatter_rows": 0}
+
+
+@pytest.mark.parametrize("n, n_unique", [(40, 40), (40, 64), (7, 7)])
+def test_segment_rows_ref_matches_reference(n, n_unique):
+    """`ref.segment_rows_ref` against `repro.kernels.ref.segment_rows_ref`
+    on the same ids (duplicates, and unused slots padded with -1) and
+    fp32 gradients: ids equal, sums bit for bit."""
+    from repro.kernels.ref import segment_rows_ref as jsegment_rows_ref
+    from repro_torch.kernels.ref import segment_rows_ref
+    rng = np.random.default_rng(n)
+    ids = rng.integers(0, 30, n).astype(np.int32)
+    ids[: n // 3] = ids[n // 3: 2 * (n // 3)]
+    g = rng.normal(size=(n, 12)).astype(np.float32)
+    want_ids, want = jsegment_rows_ref(jnp.asarray(ids), jnp.asarray(g),
+                                       n_unique)
+    got_ids, got = segment_rows_ref(torch.from_numpy(ids),
+                                    torch.from_numpy(g), n_unique)
+    np.testing.assert_array_equal(got_ids.numpy(), want_ids)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(words(got), words(want))

@@ -31,12 +31,14 @@ from repro.core.engine import home_nodes as jhome_nodes
 from repro.core.intent import Intent as JIntent
 from repro.core.manager import AdaPM as JAdaPM
 from repro.core.ownership import home_node as jhome_node
+from repro.core.timing import ActionTimer as JActionTimer
 from repro.data import workloads as jworkloads
 from repro_torch.core import api, baselines, simulator
 from repro_torch.core.engine import IntentStore, home_nodes
 from repro_torch.core.intent import Intent
 from repro_torch.core.manager import AdaPM
 from repro_torch.core.ownership import home_node
+from repro_torch.core.timing import ActionTimer
 from repro_torch.data import workloads
 from repro_torch.examples import (pm_simulation, quickstart, serve_decode,
                                   train_lm)
@@ -47,6 +49,32 @@ ROOT = Path(__file__).resolve().parents[1]
 def port_workload(wl):
     """The reference's `Workload` as the port's (the same arrays)."""
     return simulator.Workload(wl.name, wl.n_keys, wl.streams)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_action_timer_should_act_and_rate_match(seed):
+    """Algorithm 1's output: `ActionTimer.should_act` and `.rate` against
+    the reference's on the same seeded clock sequences of three workers
+    (pauses included), at every offset around the horizon, and at its
+    boundary: ``horizon - 1`` acts, ``horizon`` does not."""
+    rng = np.random.default_rng(seed)
+    kw = dict(alpha=0.1 + 0.1 * seed, p=0.9999, lam0=10.0)
+    port, ref = ActionTimer(**kw), JActionTimer(**kw)
+    clocks = [0, 0, 0]
+    for _ in range(40):
+        for w in range(3):
+            clocks[w] += int(rng.integers(0, 40)) * int(rng.random() > 0.2)
+            port.observe_round(w, clocks[w])
+            ref.observe_round(w, clocks[w])
+            assert port.rate(w) == ref.rate(w)
+            h = ref.horizon(w)
+            assert port.horizon(w) == h
+            for off in (-3, 0, h - 1, h, h + 2):
+                c = clocks[w] + off
+                assert port.should_act(w, clocks[w], c) \
+                    == ref.should_act(w, clocks[w], c)
+            assert port.should_act(w, clocks[w], clocks[w] + h - 1)
+            assert not port.should_act(w, clocks[w], clocks[w] + h)
 
 
 @pytest.mark.parametrize("n", [2, 3, 5, 8, 16, 64])

@@ -111,7 +111,11 @@ order it:
    steps) without remat, with "full" and with "dots": each loss trace
    within rtol 1e-6 of the first, the same kernel launches in all three
    (the lookup is outside the rematerialised layers), and zamba2's peak
-   lower under "full"; prints step ms and peak memory;
+   lower under "full"; prints step ms and peak memory, and holds each
+   run's peak over its steps (`max_memory_allocated` since a reset after
+   the model, state and batches exist) within 2 % of the peak the dry
+   run's tracker predicts on the host beforehand (plain fake tensors of
+   the same config, batch and knobs);
 11. decodes `long_500k` on the card: the full falcon-mamba-7b and
    zamba2-1.2b, one sequence against a 524288-position cache of seeded
    normals (zamba2's KV caches: 60.13 GB), from len 524267 to the
@@ -119,12 +123,16 @@ order it:
    len 524267 and 95, zamba2's first application's attention must hold
    4 heads within rtol 1e-4 / atol 1e-5 of float64 and its k and v at
    slot 524267; prints ms per token (median of 20 steps), the bytes a
-   token reads over the HBM rate, and the peak memory;
+   token reads over the HBM rate, and the peak memory, and holds the
+   timed steps' peak within 2 % of the tracker's prediction, as phase
+   10 does;
 12. runs the dry run (`repro_torch.launch.dryrun`) on the card's host,
    in worker processes of their own: one architecture per family
    through every shape on the 16 x 16 mesh and one combination on the
-   2 x 16 x 16 mesh, each a step called once on fake DTensors; prints
-   each record and the counts, and any combination in error fails;
+   2 x 16 x 16 mesh, each a step called once on fake DTensors, then the
+   reference's hill-climb rungs at train_4k; prints each record (with
+   its argument, output and peak bytes a device) and the counts, and
+   any combination in error fails;
 13. prints the kernel table as one JSON line, the card line and, last,
    the device line.
 
@@ -257,6 +265,13 @@ ZIPF_KEYS = 1_000_000
 REMAT_ARCHS = (HYBRID_ARCH, MOE_ARCH)
 REMAT_SETTINGS = ((False, "full"), (True, "full"), (True, "dots"))
 REMAT_STEPS, REMAT_CACHE, REMAT_RTOL = 6, 1024, 1e-6
+# a step's peak device memory as the dry run's tracker predicts it (plain
+# fake tensors, `launch.dryrun.trace_step`) against the card's allocator
+# (`max_memory_allocated` over the steps alone): within this share of the
+# measured peak (phases 10 and 11); the card's runs so far came within
+# 0.5 % (PERF.md), the allocator's rounding and cuBLAS's workspace,
+# there at the reset, making up the rest
+PEAK_RTOL = 0.02
 # the long_500k phase: configs/shapes.py's long_500k (one sequence, a
 # cache of 524288 positions) decoded by the full falcon-mamba-7b (64
 # layers, 29.1 GB of fp32 weights, an O(1) state) and zamba2-1.2b (38
@@ -277,7 +292,7 @@ DRYRUN_ARCHS = ("smollm-135m", "mixtral-8x22b", "qwen2-vl-7b",
                 ENCDEC_ARCH, SSM_ARCH, HYBRID_ARCH)
 DRYRUN_MULTI_POD = (SSM_ARCH, "long_500k")
 # the reference's hill-climb rungs of the paper's technique
-# (benchmarks/hillclimb.py), train_4k on the 16 x 16 mesh, after the
+# (benchmarks/hillclimb.py), train_4k on the 16 x 16 mesh, beside the
 # sweep: it3 (vocab-sharded embed/head, vocab-parallel loss), it4 (it3
 # and the intent-managed embedding), it6 (it4 and auto ZeRO layers), it5
 # (it6 and "dots" remat), each rung one CLI run of its architectures
@@ -1880,12 +1895,48 @@ def remat_batches(cfg, dev, seed: int = SEED):
     return batches, torch.from_numpy(cache).to(dev), misses
 
 
+def predicted_peak(cfg, kind: str, B: int, S: int, **knobs) -> dict:
+    """The dry run's tracker on plain fake tensors with fp32 weights
+    (`launch.dryrun.trace_step`, host only): one device's bytes at the
+    entry of ``kind``'s step (its arguments) and at its peak, for ``B``
+    sequences of ``S`` tokens (decoding: one token each against an
+    ``S``-position cache at its last position), with ``knobs`` (the
+    fields of `launch.dryrun.Knobs`)."""
+    import torch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.dryrun import Knobs, trace_step
+    t = trace_step(cfg, InputShape(f"{kind}_{B}x{S}", S, B, kind), None,
+                   Knobs(**knobs), distributed=False, dtype=torch.float32)
+    return {"entry": t.entry_bytes, "peak": max(t.peak_per_phase.values()),
+            "per_phase": t.peak_per_phase}
+
+
+def held_peak(name: str, predicted: dict, resident: int,
+              measured: int) -> dict:
+    """The tracker's predicted peak against the card's measured one
+    (``max_memory_allocated`` since a reset with the step's arguments,
+    ``resident`` bytes, allocated): fails beyond PEAK_RTOL of the
+    measured peak."""
+    rel = (predicted["peak"] - measured) / measured
+    out = {"predicted_peak_gb": predicted["peak"] / 1e9,
+           "step_peak_gb": measured / 1e9, "rel_diff": rel,
+           "predicted_entry_gb": predicted["entry"] / 1e9,
+           "resident_gb": resident / 1e9,
+           "predicted_per_phase_gb": {k: v / 1e9 for k, v in
+                                      predicted["per_phase"].items()},
+           "rtol": PEAK_RTOL}
+    if abs(rel) > PEAK_RTOL:
+        raise AssertionError(f"{name}: predicted peak {out}")
+    return out
+
+
 def remat_run(arch: str, remat: bool, policy: str, dev) -> dict:
     """REMAT_STEPS managed steps of ``arch`` (seeded random init, the
     fused arm through the kernels) from `make_train_step` with ``remat``
     and ``policy``; returns the losses, the steady step time (host clock
-    between the first and the last loss read), the peak memory and the
-    kernel launches."""
+    between the first and the last loss read), the peak memory (of the
+    run, and of the steps alone against the tracker's prediction,
+    `held_peak`) and the kernel launches."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.model import init_model
@@ -1894,14 +1945,22 @@ def remat_run(arch: str, remat: bool, policy: str, dev) -> dict:
     free_card()
     cfg = train_config(arch)
     torch.cuda.reset_peak_memory_stats(dev)
+    batches, cache, misses = remat_batches(cfg, dev)
+    T = batches[0]["tokens"].numel()
+    # strict: with T miss slots no token overflows, as in the run
+    predicted = predicted_peak(
+        cfg, "train", train_batch(arch), TRAIN_S, pm_miss_capacity=T,
+        pm_kernel=True, remat=remat, remat_policy=policy,
+        pm_cache_rows=REMAT_CACHE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     model = init_model(cfg, gen)
     state = make_opt_init()(model)
-    batches, cache, misses = remat_batches(cfg, dev)
-    T = batches[0]["tokens"].numel()
     step = make_train_step(cfg, lr=TRAIN_LR[arch], pm_miss_capacity=T,
                            pm_kernel=True, remat=remat, remat_policy=policy)
+    setup_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
     ops.reset_launch_counts()
     losses, read_t = [], []
     for b, n_miss in zip(batches, misses):
@@ -1911,6 +1970,7 @@ def remat_run(arch: str, remat: bool, policy: str, dev) -> dict:
         losses.append(float(loss))
         read_t.append(time.perf_counter())
     launches = ops.launch_counts()
+    step_peak = torch.cuda.max_memory_allocated(dev)
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"{arch} remat={remat} {policy}: {losses}")
     for name in ("embed_gather", "pm_combine", "adagrad_rows"):
@@ -1920,7 +1980,9 @@ def remat_run(arch: str, remat: bool, policy: str, dev) -> dict:
            "batch": [train_batch(arch), TRAIN_S], "remat": remat,
            "policy": policy if remat else None, "losses": losses,
            "step_ms": (read_t[-1] - read_t[0]) * 1e3 / (len(read_t) - 1),
-           "peak_alloc_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "peak_alloc_gb": max(setup_peak, step_peak) / 1e9,
+           **held_peak(f"{arch} remat={remat} {policy}", predicted,
+                       resident, step_peak),
            "launches": launches}
     del model, state
     return out
@@ -2035,9 +2097,11 @@ def long_decode(arch: str, dev) -> dict:
     bytes a token must read (every weight and the state, the KV caches
     included) over the HBM rate."""
     import torch
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.train.steps import make_serve_step
     free_card()
+    predicted = predicted_peak(get_config(arch), "decode", 1, LONG_CONTEXT)
     torch.cuda.reset_peak_memory_stats(dev)
     cfg, model = decode_model(arch, None, dev)
     start = LONG_CONTEXT - LONG_STEPS - 1
@@ -2076,6 +2140,10 @@ def long_decode(arch: str, dev) -> dict:
             tuple(lg.shape) != (1, cfg.vocab_size):
         raise AssertionError(f"{arch}: logits {tuple(lg.shape)} not finite")
     ms = []
+    torch.cuda.synchronize()
+    setup_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
     for _ in range(LONG_STEPS):
         tok = lg.argmax(dim=-1, keepdim=True).to(torch.int32)
         torch.cuda.synchronize()
@@ -2083,6 +2151,7 @@ def long_decode(arch: str, dev) -> dict:
         lg, cache = serve(model, cache, tok)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+    step_peak = torch.cuda.max_memory_allocated(dev)
     if cache["len"] != LONG_CONTEXT or not bool(torch.isfinite(lg).all()):
         raise AssertionError(f"{arch}: len {cache['len']} after the steps")
     launches = ops.launch_counts()
@@ -2099,19 +2168,20 @@ def long_decode(arch: str, dev) -> dict:
            "weight_bytes": weight_b, "state_bytes": state_b,
            "bound_ms": (weight_b + state_b) / HBM_BYTES_PER_S * 1e3,
            "checks": checks,
-           "peak_alloc_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+           "peak_alloc_gb": max(setup_peak, step_peak) / 1e9,
+           **held_peak(f"{arch} long_500k", predicted, resident, step_peak)}
     del model, cache, lg
     free_card()
     return out
 
 
-def _dry_runs(runs: list, tmp: Path, tag: str) -> list:
+def _dry_runs(runs: list, tmp: Path) -> list:
     """The dry-run CLI commands ``runs`` (each ending in ``--out FILE``),
     started together and awaited; the records of each.  A command that
     fails fails the phase with its log's end."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    logs = [tmp / f"dryrun_{tag}{i}.log" for i in range(len(runs))]
+    logs = [tmp / f"dryrun_{i}.log" for i in range(len(runs))]
     procs = []
     try:
         for c, log in zip(runs, logs):
@@ -2138,27 +2208,27 @@ def _dry_runs(runs: list, tmp: Path, tag: str) -> list:
 def dry_run(tmp: Path) -> dict:
     """The dry run (`repro_torch.launch.dryrun`) on the card's host, in
     worker processes of its own (its fake process group never meets the
-    card's): DRYRUN_ARCHS through every shape on the 16 x 16 mesh, and
-    DRYRUN_MULTI_POD on the 2 x 16 x 16 mesh, at the same time; then the
-    rungs of DRYRUN_RUNGS, all at once.  Any combination in error fails
+    card's): DRYRUN_ARCHS through every shape on the 16 x 16 mesh,
+    DRYRUN_MULTI_POD on the 2 x 16 x 16 mesh and the rungs of
+    DRYRUN_RUNGS, all at the same time.  Any combination in error fails
     the phase.  Returns the records, the rungs' records (each with its
     ``rung``) and the counts."""
     import os
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
     jobs = max(1, (os.cpu_count() or 2) - 1)
     arch, shape = DRYRUN_MULTI_POD
-    recs = sum(_dry_runs(
-        [cmd + ["--arch", arch, "--shape", shape, "--multi-pod",
-                "--out", str(tmp / "multi_pod.json")],
-         cmd + ["--arch", *DRYRUN_ARCHS, "--jobs", str(jobs),
-                "--out", str(tmp / "single_pod.json")]], tmp, "sweep"), [])
-    rung_runs = [cmd + ["--arch", *archs, "--shape", "train_4k", *knobs,
-                        "--jobs", str(len(archs)),
-                        "--out", str(tmp / f"rung_{name}.json")]
-                 for name, archs, knobs in DRYRUN_RUNGS]
-    rungs = [dict(r, rung=name) for (name, _, _), out in
-             zip(DRYRUN_RUNGS, _dry_runs(rung_runs, tmp, "rungs"))
-             for r in out]
+    runs = [cmd + ["--arch", arch, "--shape", shape, "--multi-pod",
+                   "--out", str(tmp / "multi_pod.json")],
+            cmd + ["--arch", *DRYRUN_ARCHS, "--jobs", str(jobs),
+                   "--out", str(tmp / "single_pod.json")]]
+    runs += [cmd + ["--arch", *archs, "--shape", "train_4k", *knobs,
+                    "--jobs", str(len(archs)),
+                    "--out", str(tmp / f"rung_{name}.json")]
+             for name, archs, knobs in DRYRUN_RUNGS]
+    out = _dry_runs(runs, tmp)
+    recs = out[0] + out[1]
+    rungs = [dict(r, rung=name) for (name, _, _), rs in
+             zip(DRYRUN_RUNGS, out[2:]) for r in rs]
     counts = {k: sum(r["status"] == k for r in recs + rungs)
               for k in ("ok", "skipped", "error")}
     bad = [(r.get("rung"), r["arch"], r["shape"], r.get("error"))
@@ -2167,6 +2237,15 @@ def dry_run(tmp: Path) -> dict:
     if bad:
         raise AssertionError(f"dry run: {counts}: {bad}")
     return {"records": recs, "rungs": rungs, "counts": counts}
+
+
+def _memory_keys(rec) -> dict:
+    """A dry-run record's per-device memory figures, for its line."""
+    m = rec["memory"]
+    return {"argument_bytes_per_device": m["argument_bytes"],
+            "peak_bytes_per_device": m["peak_bytes"],
+            "output_bytes_per_device": m["output_bytes"],
+            "peak_per_phase": m["peak_per_phase"]}
 
 
 SOURCE = {"embed_gather": "src/repro_torch/kernels/csrc/row_kernels.cu",
@@ -2420,8 +2499,7 @@ def main() -> int:
                                       "reason", "n_devices", "flops",
                                       "collective_bytes", "trace_s")}
         if r["status"] == "ok":
-            keep["argument_bytes_per_device"] = \
-                r["memory"]["argument_bytes"]
+            keep.update(_memory_keys(r))
             keep["collective_bytes_per_op"] = r["collective_bytes_per_op"]
         print("[12/13] dry run " + json.dumps(keep), flush=True)
     for r in dr["rungs"]:
@@ -2429,8 +2507,9 @@ def main() -> int:
             "rung", "arch", "shape", "mesh", "status", "pm_miss_capacity",
             "zero_embed_head", "vp_loss", "zero_layers",
             "zero_layers_effective", "remat_policy", "n_devices", "flops",
-            "collective_bytes", "collective_bytes_per_op", "trace_s")}
-        keep["argument_bytes_per_device"] = r["memory"]["argument_bytes"]
+            "collective_bytes", "collective_bytes_per_op",
+            "collective_bytes_per_phase", "trace_s")}
+        keep.update(_memory_keys(r))
         print("[12/13] dry run rung " + json.dumps(keep), flush=True)
     print("[12/13] dry run (host, fake process groups of 256 and 512 ranks): "
           + json.dumps(dict(dr["counts"], archs=list(DRYRUN_ARCHS),

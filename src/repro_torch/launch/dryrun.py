@@ -11,22 +11,36 @@ Per combination it records:
 * the exact per-device bytes of the step's arguments, from the specs at
   full depth;
 * the step's global FLOPs and its per-device collective bytes, from the
-  ops the DTensor call issues.
+  ops the DTensor call issues, in total and by part of the step
+  (``forward``, ``backward``, ``update`` for training);
+* one device's memory, under the reference's keys (``memory``):
+  ``argument_bytes`` (as above), ``output_bytes`` (the local shards of
+  what the step returns: the parameters and accumulators, updated in
+  place, and the loss; the logits; the logits and the updated cache),
+  ``peak_bytes`` (the most one device holds at once during the step,
+  its arguments included: the live bytes of `StepCounter`, counted on
+  the fake shards as a caching allocator would count the real ones),
+  ``temp_bytes`` = ``peak_bytes - argument_bytes`` (the most the step
+  holds beyond its arguments; not XLA's temp buffer size, which counts
+  every buffer of the compiled program whether or not they are alive
+  together) and ``peak_per_phase`` (the peak in each part of the step).
 
 Where the reference lowers and compiles one jitted step, the port makes
 one eager call under DTensor, and where XLA's partitioner inserts the
 collectives, DTensor's redistributions do: the counts are those of the
 port's own ops.  There is no HLO, so the reference's HLO parser
 (`_tuple_shapes`, `_split_computations`, `collective_bytes`) has no
-counterpart.  The port's layer and tile loops are eager Python where the
-reference's layers are one `lax.scan` body, so a full-depth trace would
-take hours: each step is traced at the cut depths of `depth_variants`
-(no layer and one, as a rule) and the counts are scaled to the full
-depth by a linear combination of them, the counterpart of the
-reference's trip-count scaling.  It is exact because every layer meets
-the same layouts (`models.layouts.between_layers`) and issues the same
-ops.  The CLI runs the combinations in worker processes, a fresh one
-for each (``--jobs`` of them at a time).
+counterpart, and the memory figures are the live bytes of the eager
+call, not `compiled.memory_analysis()`'s.  The port's layer and tile
+loops are eager Python where the reference's layers are one `lax.scan`
+body, so a full-depth trace would take hours: each step is traced at the
+cut depths of `depth_variants` and the counts, the peaks and the output
+bytes are scaled to the full depth by a linear combination of them, the
+counterpart of the reference's trip-count scaling.  It is exact because
+every layer meets the same layouts (`models.layouts.between_layers`)
+and issues the same ops, and the cut depths keep each peak at the same
+point of its part of the step.  The CLI runs the combinations in worker
+processes, a fresh one for each (``--jobs`` of them at a time).
 
 On a CPU mesh DTensor turns an all-to-all into an all-gather and a
 chunk (its CPU groups lack all-to-all), so such a redistribution counts
@@ -38,7 +52,8 @@ DTensor's own bookkeeping builds small index tensors that it reads back,
 which a fake tensor cannot give.  Each op on the fake shards dispatches
 to the fake mode by itself, and the model builds every tensor whose size
 grows with the inputs from an input (``new_zeros``), so only
-position-sized constants (ranges and masks) are real.
+position-sized constants (ranges and masks) are real; they count as
+live bytes, since on a device they would live there too.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \\
@@ -55,13 +70,17 @@ import multiprocessing
 import sys
 import time
 import traceback
-from concurrent.futures import ProcessPoolExecutor
+import weakref
+from collections import Counter
+from concurrent.futures import ProcessPoolExecutor, as_completed
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
-from torch._subclasses.fake_tensor import FakeTensorMode
+from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+from torch.distributed._functional_collectives import AsyncCollectiveTensor
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -75,9 +94,10 @@ from repro_torch.data.batches import batch_struct
 from repro_torch.models.model import (DenseLM, cache_seq_len, init_cache,
                                       n_attn_apps)
 from repro_torch.optim.optimizers import AdaGradState
-from repro_torch.train.steps import (make_prefill_step, make_serve_step,
-                                     make_train_step)
-from .mesh import axis_size, make_production_mesh, mesh_axes
+from repro_torch.train.steps import (PHASE_LISTENERS, make_prefill_step,
+                                     make_serve_step, make_train_step)
+from .mesh import (axis_size, make_production_mesh, mesh_axes,
+                   production_shape)
 from .sharding import (batch_entry, batch_pspecs, cache_pspecs, local_shape,
                        needs_zero, param_pspecs, placements)
 
@@ -97,10 +117,19 @@ _FUNCOL = {"all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
            "reduce_scatter_tensor": "reduce-scatter",
            "reduce_scatter_tensor_coalesced": "reduce-scatter",
            "all_to_all_single": "all-to-all"}
+#: functional-collective ops whose result is their input on a device (a
+#: wrapper of it, or it once the collective is done), and that make a new
+#: tensor of its size on fake tensors
+_ALIASES = ("wait_tensor", "_wrap_tensor_autograd")
 
 #: the managed embedding's replica cache rows in a dry run's batch, as the
 #: reference's
 PM_CACHE_ROWS = 4096
+
+#: the order the CLI traces the shapes' steps in, the most work a call
+#: first: a prefill runs 32k tokens' attention and scan tiles forward, a
+#: training step 4k tokens forward and backward, a decode step one token
+_KIND_ORDER = {"prefill": 0, "train": 1, "decode": 2}
 
 
 def skip_reason(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
@@ -115,11 +144,12 @@ def _np_dtype(d) -> torch.dtype:
 
 
 def input_specs(cfg: ModelConfig, shape: InputShape,
-                fake: Optional[FakeTensorMode] = None) -> Dict[str, Any]:
+                fake: Optional[FakeTensorMode] = None,
+                dtype: torch.dtype = PARAM_DTYPE) -> Dict[str, Any]:
     """Fake tensors of every model input of this shape: `batch_struct`'s
     fields for train and prefill; for decode one new token per sequence,
     ``tokens`` (B, 1), and ``cache``, `init_cache`'s tensors for
-    ``seq_len`` positions in `PARAM_DTYPE` (``len`` 0)."""
+    ``seq_len`` positions in ``dtype`` (``len`` 0)."""
     fake = fake or FakeTensorMode()
     with fake:
         if shape.kind in ("train", "prefill"):
@@ -129,12 +159,13 @@ def input_specs(cfg: ModelConfig, shape: InputShape,
         return {"tokens": torch.empty((shape.global_batch, 1),
                                       dtype=torch.int32),
                 "cache": init_cache(cfg, shape.global_batch, shape.seq_len,
-                                    dtype=PARAM_DTYPE, device="cpu")}
+                                    dtype=dtype, device="cpu")}
 
 
-def _fake_model(cfg: ModelConfig, fake: FakeTensorMode) -> DenseLM:
+def _fake_model(cfg: ModelConfig, fake: FakeTensorMode,
+                dtype: torch.dtype = PARAM_DTYPE) -> DenseLM:
     with fake:
-        return DenseLM(cfg, torch.Generator(), PARAM_DTYPE)
+        return DenseLM(cfg, torch.Generator(), dtype)
 
 
 def params_specs(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
@@ -151,7 +182,9 @@ def _bytes(shape, dtype, spec, mesh) -> int:
 
 
 class StepCounter(TorchDispatchMode):
-    """Counts a step's global FLOPs and its per-device collective bytes.
+    """Counts a step's global FLOPs, its per-device collective bytes and
+    one device's live bytes, each in the step's part (``phase``) where it
+    falls.
 
     FLOPs are counted at the level of whole tensors, from the global
     shapes (`torch.utils.flop_counter`'s formulas): an op on DTensors, or
@@ -160,12 +193,61 @@ class StepCounter(TorchDispatchMode):
     functional collectives DTensor issues on one device's shards, under
     the reference's names (all-reduce twice): those of an explicit
     redistribution, and those DTensor makes inside an op to bring its
-    inputs to a layout its rule takes (`_ShardOps`)."""
+    inputs to a layout its rule takes (`_ShardOps`).
 
-    def __init__(self):
+    Live bytes are counted at the level of one device's shards: the
+    storages of the tensors `hold` is given (the step's arguments) and of
+    every op's outputs on plain tensors or shards, each storage once
+    (a view or an in-place op adds nothing), until it dies.  Of fake
+    tensors only those of ``fake_mode`` (the step's) count: DTensor's
+    sharding propagation runs each new op once more on fake tensors of
+    its own of the global shapes, which no device would hold.  A real
+    tensor made inside a DTensor op counts where the op read a tensor
+    the counter holds (a plain tensor of the step, such as autograd's
+    zero gradient of an unused output, cut to a shard), and not
+    otherwise: DTensor's host bookkeeping (the index tensors of the
+    device mesh it builds to propagate a layout) reads none.  A
+    collective's result is its output buffer: the wrapper DTensor puts
+    around it, and the wait, hold nothing more (`_ALIASES`).  The
+    highest total in each part is ``peak_per_part``, and in each phase
+    ``peak_per_phase``.  A training step names its parts through
+    `train.steps.PHASE_LISTENERS`: a phase (``forward``, ``backward``,
+    ``update``), or ``phase/sub``, a part of one whose peak is kept
+    apart (``update/adagrad`` after the gradients are laid out: each
+    part's peak sits at one point of it whatever the depth, where the
+    phase's may move from one part to another); other steps stay in the
+    part named at construction."""
+
+    def __init__(self, phase: str = "step",
+                 fake_mode: Optional[FakeTensorMode] = None):
         super().__init__()
+        self.fake_mode = fake_mode
         self.flops = 0
         self.collective_bytes = {name: 0 for name in COLLECTIVES}
+        self.collective_bytes_per_phase: Dict[str, Dict[str, int]] = {}
+        self.live = 0
+        self.peak_per_part: Dict[str, int] = {}
+        self._storages: Dict[int, weakref.ref] = {}
+        self.enter_phase(phase)
+
+    def enter_phase(self, name: str) -> None:
+        """Enters the step's part ``name`` (``phase`` or ``phase/sub``)."""
+        self.part, self.phase = name, name.split("/")[0]
+        self.collective_bytes_per_phase.setdefault(
+            self.phase, {op: 0 for op in COLLECTIVES})
+        self._note_peak()
+
+    @property
+    def peak_per_phase(self) -> Dict[str, int]:
+        return by_phase(self.peak_per_part)
+
+    def __enter__(self):
+        PHASE_LISTENERS.append(self.enter_phase)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        PHASE_LISTENERS.remove(self.enter_phase)
+        return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -173,7 +255,8 @@ class StepCounter(TorchDispatchMode):
             with _ShardOps(self):
                 out = func(*args, **kwargs)
         else:
-            out = func(*args, **kwargs)
+            out = _call(func, args, kwargs)
+            self.hold(out)
         if func._overloadpacket in flop_registry:
             self.flops += int(flop_registry[func._overloadpacket](
                 *args, **kwargs, out_val=out))
@@ -188,7 +271,61 @@ class StepCounter(TorchDispatchMode):
         if op is not None:
             n = sum(t.numel() * t.element_size() for t in tree_leaves(out)
                     if isinstance(t, torch.Tensor))
-            self.collective_bytes[op] += (2 if op == "all-reduce" else 1) * n
+            n *= 2 if op == "all-reduce" else 1
+            self.collective_bytes[op] += n
+            self.collective_bytes_per_phase[self.phase][op] += n
+
+    def hold(self, tree, inputs=None) -> None:
+        """Counts the storages of the tensors in ``tree`` (of a DTensor,
+        its local shard) as live from now until each dies; of fake
+        tensors, only those of ``fake_mode``; with ``inputs`` (an op's),
+        a real tensor only where the op read one the counter holds."""
+        real = None
+        for t in tree_leaves(tree):
+            if isinstance(t, DTensor):
+                t = t._local_tensor
+            elif isinstance(t, AsyncCollectiveTensor):
+                t = t.elem
+            if not isinstance(t, torch.Tensor) or t.device.type == "meta":
+                continue
+            if isinstance(t, FakeTensor):
+                if t.fake_mode is not self.fake_mode:
+                    continue
+            elif inputs is not None:
+                if real is None:
+                    real = any(self.holds(x) for x in tree_leaves(inputs))
+                if not real:
+                    continue
+            st = t.untyped_storage()
+            key = id(st)
+            if key in self._storages:
+                continue
+            n = st.nbytes()
+            self._storages[key] = weakref.ref(st, partial(self._free, key, n))
+            self.live += n
+        self._note_peak()
+
+    def holds(self, t) -> bool:
+        """Whether ``t``'s storage is counted live."""
+        return isinstance(t, torch.Tensor) and t.device.type != "meta" \
+            and id(t.untyped_storage()) in self._storages
+
+    def _free(self, key: int, n: int, _ref) -> None:
+        del self._storages[key]
+        self.live -= n
+
+    def _note_peak(self) -> None:
+        if self.live > self.peak_per_part.get(self.part, -1):
+            self.peak_per_part[self.part] = self.live
+
+
+def by_phase(peak_per_part: Dict[str, int]) -> Dict[str, int]:
+    """The peak of each phase: the highest of its parts'."""
+    out: Dict[str, int] = {}
+    for part, v in peak_per_part.items():
+        phase = part.split("/")[0]
+        out[phase] = max(out.get(phase, v), v)
+    return out
 
 
 class _ShardOps(TorchDispatchMode):
@@ -205,54 +342,86 @@ class _ShardOps(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
-        out = func(*args, **(kwargs or {}))
+        out = _call(func, args, kwargs or {})
         if not isinstance(func, torch._ops.HigherOrderOperator):
+            self.counter.hold(out, (args, kwargs))
             self.counter.collective(func, out)
         return out
+
+
+def _call(func, args, kwargs):
+    """``func`` on ``args``; of `_ALIASES` on a fake tensor, a view of it,
+    as on a device."""
+    if func.namespace == "_c10d_functional" \
+            and func._overloadpacket.__name__ in _ALIASES \
+            and isinstance(args[0], FakeTensor):
+        return args[0].view(args[0].shape)
+    return func(*args, **kwargs)
+
+
+def _cut(n: int, first: int, period: int = 1
+         ) -> Optional[Tuple[int, int]]:
+    """The two depths a stack of ``n`` layers is traced at, ``n1`` (at
+    least ``first``, and ``n`` modulo ``period``) and ``n1 + period``;
+    None where ``n`` is no deeper than the second (it is traced whole)."""
+    n1 = first + (n - first) % period
+    return None if n <= n1 + period else (n1, n1 + period)
 
 
 def depth_variants(cfg: ModelConfig, backward: bool = False
                    ) -> List[Tuple[ModelConfig, int]]:
     """The configs a step is traced at, each with its coefficient: the
-    full-depth count is the sum of coefficient x count.  Every layer of a
-    stack meets the same layouts (`models.layouts.between_layers`) and
-    issues the same ops, ``a``, beside ``c`` outside the stack, so L
-    layers count c + L a = (1 - L) T(0) + L T(1).  The hybrid's shared
-    block adds ``b`` for each of its A applications: T(0) + L [T(1 layer
-    without it) - T(0)] + A [T(1 layer after one application) - T(1
-    layer without it)]; in training, where its gradients are summed and
-    its update made once a step, from one application and two.  The
-    encoder-decoder's two stacks scale each by
-    its own count; with a ``backward`` (training), from one layer of each
-    stack and two, since the encoder's backward runs only where a decoder
-    layer reads its output, and the gradients of that output from the
-    decoder layers are summed once."""
-    L = cfg.n_layers
-    zero = dataclasses.replace(cfg, n_layers=0)
-    one = dataclasses.replace(cfg, n_layers=1)
-    if cfg.family == "encdec":
-        E = cfg.encoder.n_layers
+    full depth's counts, peaks and output bytes are the sum of
+    coefficient x the variant's.
 
-        def enc(c, n):
-            return dataclasses.replace(
-                c, encoder=dataclasses.replace(c.encoder, n_layers=n))
-        if backward:
-            two = dataclasses.replace(cfg, n_layers=2)
-            return [(enc(one, 1), 3 - L - E), (enc(two, 1), L - 1),
-                    (enc(one, 2), E - 1)]
-        return [(enc(zero, 0), 1 - L - E), (enc(one, 0), L),
-                (enc(zero, 1), E)]
-    if cfg.family == "hybrid":
-        A = n_attn_apps(cfg)
-        bare = dataclasses.replace(one, attn_every=0)
-        if backward and A > 1:
-            # the shared block's gradients from its applications are
-            # summed, and its parameters updated, once a step: c + L a +
-            # A b + u, from one application and from two (two layers)
-            two = dataclasses.replace(cfg, n_layers=2, attn_every=1)
-            return [(zero, A - L), (bare, L - A), (one, 2 - A), (two, A - 1)]
-        return [(zero, 1 - L), (bare, L - A), (one, A)]
-    return [(zero, 1 - L), (one, L)]
+    Every layer of a stack meets the same layouts
+    (`models.layouts.between_layers`) and issues the same ops, so the
+    counts and the bytes held at any fixed point of a part of the step
+    are affine in the depth, and a part's peak is too wherever it sits
+    at the same point at the cut depths and the full one.  The first
+    layer differs from the others (its input is the embedding's output,
+    which the model holds through the stack, and no layout is made for
+    it; in training, with one layer the top layer is the bottom one), so
+    a stack is traced at two layers and three, and L layers give
+    (3 - L) T(2) + (L - 2) T(3).  The hybrid applies its shared block
+    before every ``attn_every``-th layer (period e) and holds A
+    applications' KV caches.  Forward only (prefill, decode), its peak
+    sits in a layer applying the block past the first (or in the head)
+    whatever the period, and is affine in L and A: it is traced at two
+    layers applying the block twice, and three applying it twice and
+    thrice.  In training its peaks follow the period: it is traced at
+    two depths one period apart with the full depth's remainder modulo
+    e, from two applications of the block on (the second adds its
+    gradient into the first's, which holds one more temporary).  The
+    encoder-decoder scales each stack by its own depth, the other held
+    at two layers.  A stack no deeper than its second cut depth is
+    traced whole."""
+    if cfg.family == "encdec":
+        def at(n, m):
+            return dataclasses.replace(cfg, n_layers=n, encoder=dataclasses
+                                       .replace(cfg.encoder, n_layers=m))
+        L, E = cfg.n_layers, cfg.encoder.n_layers
+        d, e = _cut(L, 2), _cut(E, 2)
+        d1 = d[0] if d else L
+        e1 = e[0] if e else E
+        kd, ke = L - d1, E - e1
+        return [(at(d1, e1), 1 - kd - ke)] \
+            + ([(at(d[1], e1), kd)] if d else []) \
+            + ([(at(d1, e[1]), ke)] if e else [])
+    period = cfg.attn_every if cfg.family == "hybrid" and cfg.attn_every \
+        else 1
+    if period > 1 and not backward and cfg.n_layers > 3:
+        # c + L a + A b, from (L, A) = (2, 2), (3, 2) and (3, 3)
+        L, A = cfg.n_layers, n_attn_apps(cfg)
+        return [(dataclasses.replace(cfg, n_layers=n, attn_every=e), coef)
+                for n, e, coef in ((2, 1, 3 - L), (3, 2, L - A),
+                                   (3, 1, A - 2))]
+    cut = _cut(cfg.n_layers, period + 1, period)
+    if cut is None:
+        return [(cfg, 1)]
+    k = (cfg.n_layers - cut[0]) // period
+    return [(dataclasses.replace(cfg, n_layers=cut[0]), 1 - k),
+            (dataclasses.replace(cfg, n_layers=cut[1]), k)]
 
 
 class _Fakes:
@@ -293,6 +462,11 @@ class Knobs:
     remat_policy: str = "full"
     zero_layers: Optional[bool] = True
     fsdp_gather: bool = False
+    # besides the reference's: the training step as a caller on the card
+    # may build it (`chip_smoke.py` predicts its peaks with these)
+    remat: bool = True
+    pm_kernel: bool = False
+    pm_cache_rows: int = PM_CACHE_ROWS
 
 
 def _layer_fsdp_spec(cfg: ModelConfig, mesh, fake: FakeTensorMode):
@@ -311,13 +485,15 @@ def _token_spec(B: int, mesh):
     return (entry if B % bsize == 0 else None, None)
 
 
-def _batch_shapes(cfg: ModelConfig, shape: InputShape,
-                  knobs: Knobs) -> Dict[str, Tuple[tuple, torch.dtype]]:
+def _batch_shapes(cfg: ModelConfig, shape: InputShape, knobs: Knobs,
+                  dtype: torch.dtype = PARAM_DTYPE
+                  ) -> Dict[str, Tuple[tuple, torch.dtype]]:
     out = {k: (s, _np_dtype(d)) for k, (s, d) in
            batch_struct(cfg, shape.global_batch, shape.seq_len).items()}
     if knobs.pm_miss_capacity:
-        out["pm_cache_ids"] = ((PM_CACHE_ROWS,), torch.int32)
-        out["pm_cache_rows"] = ((PM_CACHE_ROWS, cfg.d_model), PARAM_DTYPE)
+        C = knobs.pm_cache_rows
+        out["pm_cache_ids"] = ((C,), torch.int32)
+        out["pm_cache_rows"] = ((C, cfg.d_model), dtype)
     return out
 
 
@@ -354,18 +530,23 @@ def argument_bytes(cfg: ModelConfig, shape: InputShape, mesh,
 
 
 def trace_step(cfg: ModelConfig, shape: InputShape, mesh,
-               knobs: Knobs = Knobs(), distributed: bool = True
-               ) -> StepCounter:
+               knobs: Knobs = Knobs(), distributed: bool = True,
+               dtype: torch.dtype = PARAM_DTYPE) -> StepCounter:
     """One call of ``shape``'s step at ``cfg``'s depth on fake tensors:
     with ``distributed``, DTensors placed by the specs on ``mesh`` (under
     `implicit_replication`: a plain constant joins a DTensor op
-    replicated); without, plain fake tensors of the global shapes.
-    Returns the counts."""
+    replicated); without, plain fake tensors of the global shapes (and
+    ``mesh`` may be None).  ``dtype``: the parameters' and the decode
+    cache's.  Returns the counts, with ``entry_bytes``, one device's
+    bytes of the step's arguments as the counter holds them, and
+    ``output_bytes``, of what the step returns: the parameters and the
+    accumulators (updated in place) and the loss when training; the
+    logits, and the cache when decoding."""
     fakes = _Fakes(mesh)
-    model = _fake_model(cfg, fakes.mode)
-    zl = _zero_layers(cfg, mesh, knobs)
-    fsdp_spec = None
+    model = _fake_model(cfg, fakes.mode, dtype)
+    fsdp_spec, specs = None, {}
     if distributed:
+        zl = _zero_layers(cfg, mesh, knobs)
         specs = param_pspecs(dict(model.named_parameters()), cfg, mesh,
                              zero_embed_head=knobs.zero_embed_head,
                              zero_layers=zl)
@@ -373,26 +554,28 @@ def trace_step(cfg: ModelConfig, shape: InputShape, mesh,
             fsdp_spec = _layer_fsdp_spec(cfg, mesh, fakes.mode)
         fakes.distribute(model, specs)
 
-    def place(shp, dtype, spec):
+    def spec_of(specs_fn, *args):
+        return specs_fn(cfg, mesh, *args) if distributed else {}
+
+    def place(shp, dt, spec):
         if distributed:
-            return fakes.dtensor(shp, dtype, spec)
+            return fakes.dtensor(shp, dt, spec)
         with fakes.mode:
-            return torch.empty(shp, dtype=dtype)
+            return torch.empty(shp, dtype=dt)
 
     B = shape.global_batch
-    counter = StepCounter()
     if shape.kind in ("train", "prefill"):
-        b = _batch_shapes(cfg, shape, knobs)
-        bspec = batch_pspecs(cfg, mesh, {k: s for k, (s, _) in b.items()})
-        batch = {k: place(s, d, bspec[k]) for k, (s, d) in b.items()}
+        b = _batch_shapes(cfg, shape, knobs, dtype)
+        bspec = spec_of(batch_pspecs, {k: s for k, (s, _) in b.items()})
+        batch = {k: place(s, d, bspec.get(k)) for k, (s, d) in b.items()}
     if shape.kind == "train":
-        opt = AdaGradState({n: place(p.shape, torch.float32, specs[n]
-                                     if distributed else None)
+        opt = AdaGradState({n: place(p.shape, torch.float32, specs.get(n))
                             for n, p in model.named_parameters()})
         vp_ok = (distributed and knobs.vp_loss
                  and cfg.vocab_size % axis_size(mesh, "model") == 0)
         step = make_train_step(cfg, pm_miss_capacity=knobs.pm_miss_capacity,
                                pm_strict=bool(knobs.pm_miss_capacity),
+                               pm_kernel=knobs.pm_kernel, remat=knobs.remat,
                                remat_policy=knobs.remat_policy,
                                vp_loss_mesh=mesh if vp_ok else None,
                                fsdp_spec=fsdp_spec)
@@ -402,53 +585,114 @@ def trace_step(cfg: ModelConfig, shape: InputShape, mesh,
                                  fsdp_spec=fsdp_spec)
         call = (step, model, batch)
     else:
-        inputs = input_specs(cfg, shape, fakes.mode)
+        inputs = input_specs(cfg, shape, fakes.mode, dtype)
         cache = {k: v for k, v in inputs["cache"].items() if k != "len"}
-        cspec = cache_pspecs(cfg, mesh, cache)
-        cache = {k: place(t.shape, t.dtype, cspec[k])
+        cspec = spec_of(cache_pspecs, cache)
+        cache = {k: place(t.shape, t.dtype, cspec.get(k))
                  for k, t in cache.items()}
         # the new token at the cache's last position: it attends to the
         # whole cache, as the reference's step does (its cache length is
         # a traced scalar, and it masks the full-size cache)
         cache["len"] = cache_seq_len(cfg, shape.seq_len) - 1
-        tokens = place((B, 1), torch.int32, _token_spec(B, mesh))
+        tokens = place((B, 1), torch.int32,
+                       _token_spec(B, mesh) if distributed else None)
         call = (make_serve_step(cfg, fsdp_spec=fsdp_spec), model, cache,
                 tokens)
+    counter = StepCounter("forward" if shape.kind == "train" else shape.kind,
+                          fakes.mode)
+    counter.hold([_tensors(a) for a in call[1:]])
+    counter.entry_bytes = counter.live
     with implicit_replication(), counter:
-        call[0](*call[1:])
+        out = call[0](*call[1:])
+    counter.output_bytes = _local_bytes(_tensors(out))
     return counter
 
 
-def dryrun_one(arch: str, shape_name, *, multi_pod: bool = False,
-               pm_miss_capacity: int = 0, zero_embed_head: bool = True,
-               prefill_last_only: bool = False, vp_loss: bool = False,
-               remat_policy: str = "full", pad_vocab: bool = False,
-               zero_layers=True, fsdp_gather: bool = False,
-               verbose: bool = True, smoke: bool = False,
-               mesh=None) -> Dict[str, Any]:
-    """The dry run of ``arch`` at ``shape_name`` (a name of `SHAPES`, or
-    an `InputShape`) on the production mesh, with the reference's knobs
-    and record keys.  ``smoke``: the architecture's smoke config;
-    ``mesh``: a `DeviceMesh` of a fake group in place of the production
-    mesh (both for tests)."""
-    cfg = get_config(arch, smoke=smoke)
+def _tensors(x) -> list:
+    """The tensors of a step's argument or result (a module's are its
+    parameters)."""
+    if isinstance(x, nn.Module):
+        return list(x.parameters())
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
+def _local_bytes(tensors) -> int:
+    """One device's bytes of ``tensors`` (of a DTensor, its local shard),
+    each tensor once."""
+    seen = {id(t): t for t in tensors}
+    return sum((t._local_tensor if isinstance(t, DTensor) else t).numel()
+               * t.element_size() for t in seen.values())
+
+
+def _config(arch, shape_name, pad_vocab: bool = False,
+            smoke: bool = False) -> Tuple[ModelConfig, InputShape]:
+    cfg = arch if isinstance(arch, ModelConfig) \
+        else get_config(arch, smoke=smoke)
     if pad_vocab:
         pad_to = 16 * 128
         v = -(-cfg.vocab_size // pad_to) * pad_to
         cfg = dataclasses.replace(cfg, vocab_size=v)
     shape = shape_name if isinstance(shape_name, InputShape) \
         else SHAPES[shape_name]
+    return cfg, shape
+
+
+def _mesh_name(mesh) -> str:
+    return "x".join(str(n) for n in mesh_axes(mesh).values())
+
+
+def _counts(t: StepCounter, seconds: float) -> Dict[str, Any]:
+    """A trace's counts as plain numbers (what a worker sends back)."""
+    return {"flops": t.flops, "output_bytes": t.output_bytes,
+            "collective_bytes": t.collective_bytes,
+            "collective_bytes_per_phase": t.collective_bytes_per_phase,
+            "peak_per_part": t.peak_per_part, "seconds": seconds}
+
+
+def trace_variant(arch, shape_name, j: int, *, multi_pod: bool = False,
+                  pad_vocab: bool = False, smoke: bool = False, mesh=None,
+                  **knobs) -> Dict[str, Any]:
+    """The counts of the ``j``-th of `depth_variants` of ``arch`` (a name,
+    or a `ModelConfig`) at ``shape_name`` (with the fields of `Knobs`),
+    traced on ``mesh`` (None: the production mesh, whose fake group this
+    process starts)."""
+    cfg, shape = _config(arch, shape_name, pad_vocab, smoke)
+    k = Knobs(**knobs)
+    if mesh is None:
+        mesh = make_production_mesh(multi_pod=multi_pod)
+    k = dataclasses.replace(k, zero_layers=_zero_layers(cfg, mesh, k))
+    c, _ = depth_variants(cfg, shape.kind == "train")[j]
+    t0 = time.time()
+    return _counts(trace_step(c, shape, mesh, k), time.time() - t0)
+
+
+def dryrun_one(arch, shape_name, *, multi_pod: bool = False,
+               pm_miss_capacity: int = 0, zero_embed_head: bool = True,
+               prefill_last_only: bool = False, vp_loss: bool = False,
+               remat_policy: str = "full", pad_vocab: bool = False,
+               zero_layers=True, fsdp_gather: bool = False,
+               verbose: bool = True, smoke: bool = False,
+               mesh=None, traced: Optional[list] = None) -> Dict[str, Any]:
+    """The dry run of ``arch`` (a name of `ARCH_IDS`, or a `ModelConfig`)
+    at ``shape_name`` (a name of `SHAPES`, or an `InputShape`) on the
+    production mesh, with the reference's knobs and record keys.
+    ``smoke``: the architecture's smoke config; ``mesh``: a `DeviceMesh`
+    of a fake group in place of the production mesh (both for tests).
+    ``traced``: the counts of `depth_variants` traced elsewhere
+    (`trace_variant`, in the CLI's workers), in order; None: traced
+    here."""
+    cfg, shape = _config(arch, shape_name, pad_vocab, smoke)
     knobs = Knobs(pm_miss_capacity=pm_miss_capacity,
                   zero_embed_head=zero_embed_head,
                   prefill_last_only=prefill_last_only, vp_loss=vp_loss,
                   remat_policy=remat_policy, zero_layers=zero_layers,
                   fsdp_gather=fsdp_gather)
-    if mesh is None:
-        mesh_name = "2x16x16" if multi_pod else "16x16"
-    else:
-        mesh_name = "x".join(str(n) for n in mesh_axes(mesh).values())
     rec: Dict[str, Any] = {
-        "arch": arch, "shape": shape.name, "mesh": mesh_name,
+        "arch": cfg.arch_id, "shape": shape.name,
+        "mesh": _mesh_name(production_shape(multi_pod) if mesh is None
+                           else mesh),
         "pm_miss_capacity": pm_miss_capacity,
         "zero_embed_head": zero_embed_head,
         "prefill_last_only": prefill_last_only,
@@ -463,49 +707,63 @@ def dryrun_one(arch: str, shape_name, *, multi_pod: bool = False,
         rec["reason"] = reason
         return rec
 
-    t0 = time.time()
-    if mesh is None:
-        mesh = make_production_mesh(multi_pod=multi_pod)
+    variants = depth_variants(cfg, shape.kind == "train")
+    if traced is None:
+        if mesh is None:
+            mesh = make_production_mesh(multi_pod=multi_pod)
+        traced = [trace_variant(cfg, shape, j, mesh=mesh,
+                                **dataclasses.asdict(knobs))
+                  for j in range(len(variants))]
+    elif mesh is None:
+        mesh = production_shape(multi_pod)
     rec["zero_layers_effective"] = _zero_layers(cfg, mesh, knobs)
-    # the full depth's ZeRO decision holds at the cut depths too
-    traced = dataclasses.replace(knobs,
-                                 zero_layers=rec["zero_layers_effective"])
-    flops = 0
+    flops = out_b = 0
     coll = {name: 0 for name in COLLECTIVES}
+    coll_phase: Dict[str, Dict[str, int]] = {}
+    peaks: Dict[str, int] = {}
     depths = []
-    for c, coef in depth_variants(cfg, shape.kind == "train"):
-        counts = trace_step(c, shape, mesh, traced)
-        flops += coef * counts.flops
-        for k, v in counts.collective_bytes.items():
+    for (c, coef), counts in zip(variants, traced):
+        flops += coef * counts["flops"]
+        out_b += coef * counts["output_bytes"]
+        for k, v in counts["collective_bytes"].items():
             coll[k] += coef * v
+        for ph, per_op in counts["collective_bytes_per_phase"].items():
+            acc = coll_phase.setdefault(ph, dict.fromkeys(COLLECTIVES, 0))
+            for k, v in per_op.items():
+                acc[k] += coef * v
+        for part, v in counts["peak_per_part"].items():
+            peaks[part] = peaks.get(part, 0) + coef * v
         depths.append({"n_layers": c.n_layers, "coefficient": coef,
                        **({"attn_apps": n_attn_apps(c)}
                           if c.family == "hybrid" else {}),
                        **({"enc_layers": c.encoder.n_layers}
                           if c.encoder is not None else {})})
-    trace_s = time.time() - t0
+    trace_s = sum(t["seconds"] for t in traced)
     n_dev = 1
     for n in mesh_axes(mesh).values():
         n_dev *= n
+    args_b = argument_bytes(cfg, shape, mesh, knobs)
+    peaks = by_phase(peaks)
+    peak = max(peaks.values())
     rec.update({
         "status": "ok",
         "trace_s": round(trace_s, 1),
         "trace_depth": depths,
         "flops": flops,
         "collective_bytes_per_op": coll,
+        "collective_bytes_per_phase": coll_phase,
         "collective_bytes": sum(coll.values()),
-        "memory": {
-            "argument_bytes": argument_bytes(cfg, shape, mesh, knobs),
-            "output_bytes": None, "peak_bytes": None,
-            "reason": "not measured: the traces run one or two layers, "
-                      "whose outputs and peak are not the full depth's"},
+        "memory": {"argument_bytes": args_b, "output_bytes": out_b,
+                   "temp_bytes": peak - args_b, "peak_bytes": peak,
+                   "peak_per_phase": peaks},
         "n_devices": n_dev,
     })
     if verbose:
-        print(f"[dryrun] {arch} x {shape.name} x {rec['mesh']}: OK "
+        print(f"[dryrun] {rec['arch']} x {shape.name} x {rec['mesh']}: OK "
               f"(trace {trace_s:.1f}s, GFLOPs {flops / 1e9:.1f}, "
               f"coll {rec['collective_bytes'] / 1e6:.1f}MB, args/device "
-              f"{rec['memory']['argument_bytes'] / 1e9:.2f}GB)", flush=True)
+              f"{args_b / 1e9:.2f}GB, peak/device {peak / 1e9:.2f}GB)",
+              flush=True)
     return rec
 
 
@@ -550,41 +808,76 @@ def main(argv=None):
                  pad_vocab=args.pad_vocab,
                  zero_layers=None if args.auto_zero_layers else True,
                  fsdp_gather=args.fsdp_gather)
-    combos = [(a, s, mp, knobs) for a in archs for s in shapes
-              for mp in meshes]
-    results = []
+    combos = [(a, s, mp) for a in archs for s in shapes for mp in meshes]
+    results: Dict[int, Dict[str, Any]] = {}
 
-    def keep(rec):
-        results.append(rec)
+    def keep(i, rec):
+        results[i] = rec
         if args.out:
             with open(args.out, "w") as f:
-                json.dump(results, f, indent=1)
+                json.dump([results[k] for k in sorted(results)], f,
+                          indent=1)
 
-    # one fresh worker process a combination: a process keeps one fake
-    # group (DTensor's caches hold on to a replaced group's subgroups)
+    # every traced depth of every combination is a task of its own, by
+    # the work of a call (`_KIND_ORDER`), the deepest first; a worker
+    # keeps its fake group from task to task, and with both meshes is a
+    # fresh process for each task (DTensor's caches hold on to a
+    # replaced group's subgroups)
+    tasks = []
+    for i, (a, s, mp) in enumerate(combos):
+        cfg, shape = _config(a, s, args.pad_vocab)
+        if skip_reason(cfg, shape):
+            keep(i, _run_combo(a, s, mp, knobs, []))
+            continue
+        for j, (c, _) in enumerate(depth_variants(cfg,
+                                                  shape.kind == "train")):
+            depth = c.n_layers + (c.encoder.n_layers if c.encoder else 0)
+            tasks.append((_KIND_ORDER[shape.kind], -depth, i, j))
+    traced: Dict[int, list] = {i: [] for i in range(len(combos))}
+    errors: Dict[int, tuple] = {}
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(args.jobs, mp_context=ctx,
-                             max_tasks_per_child=1) as pool:
-        for rec in pool.map(_run_combo, combos):
-            keep(rec)
-    ok = sum(1 for r in results if r["status"] == "ok")
-    sk = sum(1 for r in results if r["status"] == "skipped")
-    err = sum(1 for r in results if r["status"] == "error")
+                             max_tasks_per_child=1 if args.both_meshes
+                             else None) as pool:
+        futures = {pool.submit(trace_variant, combos[i][0], combos[i][1],
+                               j, multi_pod=combos[i][2], **knobs): (i, j)
+                   for *_, i, j in sorted(tasks)}
+        left = Counter(i for *_, i, _ in tasks)
+        for fut in as_completed(futures):
+            i, j = futures[fut]
+            try:
+                traced[i].append((j, fut.result()))
+            except Exception as e:
+                errors.setdefault(i, (e, "".join(traceback.format_exception(
+                    e))))
+            left[i] -= 1
+            if left[i] == 0:
+                a, s, mp = combos[i]
+                keep(i, _run_combo(a, s, mp, knobs,
+                                   [t for _, t in sorted(traced[i])],
+                                   errors.get(i)))
+    ok = sum(1 for r in results.values() if r["status"] == "ok")
+    sk = sum(1 for r in results.values() if r["status"] == "skipped")
+    err = sum(1 for r in results.values() if r["status"] == "error")
     print(f"[dryrun] done: {ok} ok, {sk} skipped (documented), {err} failed")
     return 1 if err else 0
 
 
-def _run_combo(combo) -> Dict[str, Any]:
-    """`dryrun_one` of one (arch, shape name, multi_pod, knobs), or its
-    error record: the op DTensor refused and the traceback's end."""
-    a, s, mp, knobs = combo
+def _run_combo(a: str, s: str, mp: bool, knobs: dict, traced: list,
+               error: Optional[tuple] = None) -> Dict[str, Any]:
+    """`dryrun_one` of one (arch, shape name, multi_pod) from its traced
+    variants, or its error record: the op DTensor refused and the
+    traceback's end."""
     try:
-        return dryrun_one(a, s, multi_pod=mp, **knobs)
+        if error is not None:
+            raise error[0]
+        return dryrun_one(a, s, multi_pod=mp, traced=traced, **knobs)
     except Exception as e:
-        tb = traceback.format_exc()
+        tb = error[1] if error is not None else traceback.format_exc()
         print(f"[dryrun] {a} x {s}: FAILED {e!r}", file=sys.stderr,
               flush=True)
-        return {"arch": a, "shape": s, "mesh": "2x16x16" if mp else "16x16",
+        return {"arch": a, "shape": s,
+                "mesh": _mesh_name(production_shape(mp)),
                 "status": "error", "error": repr(e), "op": _failed_op(tb),
                 "trace": tb[-6000:]}
 

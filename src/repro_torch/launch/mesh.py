@@ -130,18 +130,29 @@ def batch_axes(mesh) -> Tuple[str, ...]:
     return ("pod", "data") if "pod" in mesh_axes(mesh) else ("data",)
 
 
+#: the reference's production meshes: one pod of 16 x 16 chips, and two
+PRODUCTION = MeshShape(("data", "model"), (16, 16))
+PRODUCTION_MULTI_POD = MeshShape(("pod", "data", "model"), (2, 16, 16))
+
+
+def production_shape(multi_pod: bool = False) -> MeshShape:
+    """The production mesh's axes (`PRODUCTION`, or with ``multi_pod``
+    `PRODUCTION_MULTI_POD`), without a process group."""
+    return PRODUCTION_MULTI_POD if multi_pod else PRODUCTION
+
+
 def make_production_mesh(multi_pod: bool = False):
     """The production mesh as a `DeviceMesh` over a ``"fake"`` process
-    group in this process: (16, 16) over ``("data", "model")``, or
-    ``multi_pod`` (2, 16, 16) over ``("pod", "data", "model")``.  Nothing
-    is allocated and no collective moves data.
+    group in this process: `production_shape`'s axes, (16, 16) over
+    ``("data", "model")``, or ``multi_pod`` (2, 16, 16) over ``("pod",
+    "data", "model")``.  Nothing is allocated and no collective moves
+    data.
 
     A dry run is a process of its own, as the reference's is with its
     host-device flag: this starts the default process group (`fake_mesh`)
     and raises if the process already has a real one."""
-    if multi_pod:
-        return fake_mesh((2, 16, 16), ("pod", "data", "model"))
-    return fake_mesh((16, 16), ("data", "model"))
+    shape = production_shape(multi_pod)
+    return fake_mesh(shape.sizes, shape.axis_names)
 
 
 def make_host_mesh():

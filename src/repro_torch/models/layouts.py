@@ -42,6 +42,26 @@ def reduce_partials(t):
         Replicate() if pl.is_partial() else pl for pl in t.placements])
 
 
+def as_param(g, p):
+    """A parameter's gradient ``g`` laid out as the parameter ``p``: a
+    DTensor's pending partial sums reduced once, into ``p``'s placements
+    (an all-reduce where ``p`` is replicated, a reduce-scatter where it
+    is sharded), in ``g``'s own dtype; a plain tensor as it is.  Left
+    partial, every op of the optimizer that needs it whole would reduce
+    it again.  The smaller tensor moves: first the mesh dimensions where
+    ``g`` is whole and ``p`` sharded are cut (a local chunk, nothing
+    moves), then the reduce-scatters, then the all-reduces."""
+    if not isinstance(g, DTensor):
+        return g
+    for move in (lambda pl, q: pl.is_replicate() and q.is_shard(),
+                 lambda pl, q: pl.is_partial() and q.is_shard()):
+        lay = [q if move(pl, q) else pl
+               for pl, q in zip(g.placements, p.placements)]
+        if lay != list(g.placements):
+            g = g.redistribute(g.device_mesh, lay)
+    return g.redistribute(p.device_mesh, p.placements)
+
+
 class _GradLaidOut(torch.autograd.Function):
     """The identity, whose backward lays the gradient out by ``fn``."""
 

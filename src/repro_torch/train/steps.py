@@ -57,6 +57,14 @@ cache's ``enc_out``, written by the caller before the prefill.
 
 fp32 matmuls run in full fp32: TF32 is switched off for matmuls and
 cuDNN when a step is built.
+
+The training step names its parts as it enters them, ``forward``,
+``backward`` and ``update`` (the gradients laid out), then
+``update/adagrad`` and, in the fused arm, ``update/rows`` (the dense and
+the row AdaGrad), to the listeners in `PHASE_LISTENERS` (a dry run's
+step counter, `launch.dryrun.StepCounter`, while it counts); with none,
+naming a part costs a loop over an empty list, five times a step at
+most.
 """
 
 from __future__ import annotations
@@ -74,12 +82,38 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.pm_forward import step_residual
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.launch.sharding import batch_entry
+from repro_torch.models.layouts import as_param
 from repro_torch.models.losses import vocab_parallel_ce
 from repro_torch.models.model import loss_fn
 from repro_torch.optim.optimizers import (adagrad_init, adagrad_update,
                                           adam_init, adam_update)
 from repro_torch.pm.collectives import resolve
 from repro_torch.pm.embedding import pm_lookup
+
+
+#: callables told the name of each part of a training step as it starts
+PHASE_LISTENERS: list = []
+
+
+def enter_phase(name: str) -> None:
+    """Tells `PHASE_LISTENERS` that the step's part ``name`` starts."""
+    for listen in PHASE_LISTENERS:
+        listen(name)
+
+
+def laid_out_grads(params) -> dict:
+    """The gradients of ``params`` (name -> parameter), each laid out as
+    its parameter (`layouts.as_param`: a DTensor's partial sums reduced
+    once) and put back in ``.grad`` in place of the backward's; a
+    parameter the step does not use (a hybrid with no layer applying its
+    shared block) has no gradient and is left out, and keeps its value,
+    as a zero gradient leaves it under AdaGrad.  Plain gradients are the
+    backward's own tensors."""
+    grads = {}
+    for k, p in params.items():
+        if p.grad is not None:
+            p.grad = grads[k] = as_param(p.grad, p)
+    return grads
 
 
 def full_fp32_matmuls() -> None:
@@ -145,10 +179,13 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
         # DTensor's vocab-parallel loss runs its backward in its context
         with loss_parallel() if vp_loss_mesh is not None else nullcontext():
             loss = run_loss(model, batch, residual, embed_rows)
+            enter_phase("backward")
             loss.backward()
+        enter_phase("update")
         return loss
 
     def train_step(model, opt_state, batch):
+        enter_phase("forward")
         tokens = batch["tokens"]
         B, S = tokens.shape
         T = B * S
@@ -162,11 +199,8 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
 
         if not sparse_embed:
             loss = loss_and_grads(model, batch, residual)
-            # a parameter the step does not use (a hybrid with no layer
-            # applying its shared block) has no gradient and keeps its
-            # value, as a zero gradient leaves it under AdaGrad
-            grads = {k: p.grad for k, p in params.items()
-                     if p.grad is not None}
+            grads = laid_out_grads(params)
+            enter_phase("update/adagrad")
             update(grads, opt_state, params, lr=lr)
             return loss.detach(), model, opt_state
 
@@ -187,8 +221,10 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "adagrad",
         h0.requires_grad_(True)
         loss = loss_and_grads(model, batch, residual, embed_rows=h0)
         rest = {k: p for k, p in params.items() if k != "embed"}
-        adagrad_update({k: p.grad for k, p in rest.items()
-                        if p.grad is not None}, opt_state, rest, lr=lr)
+        grads = laid_out_grads(rest)
+        enter_phase("update/adagrad")
+        adagrad_update(grads, opt_state, rest, lr=lr)
+        enter_phase("update/rows")
         # fused sparse AdaGrad on exactly the touched (unique) rows, where
         # the row lives (`EmulatedBackend.update_rows`: the `adagrad_rows`
         # kernel, pads skipped; `MeshBackend.update_rows`: routed to the

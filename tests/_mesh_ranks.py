@@ -398,3 +398,57 @@ def dtensor_pm_train(archs, mesh_shapes, steps: int = 2, seed: int = 0
                 out[(arch, tuple(shape), strict)] = {
                     k: (plain[k], dt[k]) for k in plain}
     return out
+
+
+def dtensor_peaks(archs, mesh_shapes, seed: int = 0) -> dict:
+    """For each arch (smoke config) and mesh shape over ("data", "model")
+    of this group: one device's peak bytes in each part of one training
+    step on DTensors placed as `_dtensor_setup` places them (fp32, 2
+    sequences of 16 tokens, ZeRO layers and no FSDP gather, as the dry
+    run's default knobs), as (the peak of each part by the dry run's
+    counter on fake shards, `dryrun.trace_step` on this mesh; by the
+    counter on the real shards, ``fake_mode`` None; `MemTracker`'s total
+    peak on the real shards)."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.optimizers import AdaGradState
+    from repro_torch.train.steps import make_train_step
+
+    def real_step(cfg, mesh, track):
+        model, accum, batches, _ = _dtensor_setup(cfg, 1, seed, mesh)
+        args = (model, AdaGradState(accum), batches[0])
+        tracker = track([dryrun._tensors(a) for a in args])
+        with implicit_replication(), tracker:
+            make_train_step(cfg, lr=0.01)(*args)
+        return tracker
+
+    def counter(tensors):
+        c = dryrun.StepCounter("forward")
+        c.hold(tensors)
+        return c
+
+    def mem_tracker(tensors):
+        t = MemTracker()
+        t.track_external(*tree_leaves(tensors))
+        return t
+
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch, smoke=True)
+        for shape in mesh_shapes:
+            mesh = init_device_mesh("cpu", tuple(shape),
+                                    mesh_dim_names=("data", "model"))
+            fake = dryrun.trace_step(cfg, InputShape("t", 16, 2, "train"),
+                                     mesh, dtype=torch.float32)
+            real = real_step(cfg, mesh, counter)
+            tracked = real_step(cfg, mesh, mem_tracker)
+            out[(arch, tuple(shape))] = (
+                fake.peak_per_part, real.peak_per_part,
+                tracked.get_tracker_snapshot("peak")[
+                    torch.device("cpu")]["Total"])
+    return out

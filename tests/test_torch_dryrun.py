@@ -1,12 +1,17 @@
 """The port's dry run (`repro_torch.launch.dryrun`): each family's smoke
-config through its train, prefill and serve steps on a fake 2 x 2
-("data", "model") mesh of DTensors, nothing allocated.
+config, deepened past its cut depths (`deep`), through its train,
+prefill and serve steps on a fake 2 x 2 ("data", "model") mesh of
+DTensors, nothing allocated.
 
 * ``status`` ok, and the argument bytes equal the per-device shard sizes
   computed from the reference's specs (`repro.launch.sharding`, over the
   reference's parameter and input structs, on a stand-in mesh);
 * the unit-scaled counts (`depth_variants`) equal a trace at the full
-  smoke depth, FLOPs and every collective's bytes;
+  depth, FLOPs and every collective's bytes, in each part of the step;
+* the memory record: the output bytes equal those of the reference's
+  specs (parameters, accumulators and the loss; the logits and the
+  cache), the peak in each part equals the full trace's and is at least
+  the argument bytes, which the counter holds at the step's entry;
 * the global FLOPs equal `FlopCounterMode`'s count of the same step on
   plain fake tensors (no DTensor);
 * no collective on a 1 x 1 mesh, and some on 2 x 2.
@@ -20,6 +25,7 @@ mesh, as the reference's slow test does.
 """
 
 import dataclasses
+import functools
 import json
 from collections import Counter
 import os
@@ -59,6 +65,34 @@ FAMILIES = ("smollm-135m", "qwen3-moe-30b-a3b", "qwen2-vl-7b",
             "whisper-medium", "falcon-mamba-7b", "zamba2-1.2b")
 
 
+def deep(cfg):
+    """A smoke config (the port's or the reference's) deeper than its
+    cut depths (`dryrun.depth_variants`), so that the dry run's scaled
+    counts are not a trace of the whole: stacks of 5 layers (traced at
+    2 and 3), zamba2 with 7 and its shared block before every second (4
+    applications: training traced at 3 and 5 layers, forward at 2 and 3
+    layers applying it twice, and 3 thrice), whisper's 4 decoder and 4
+    encoder layers (traced at 2 + 2, 3 + 2 and 2 + 3)."""
+    if cfg.encoder is not None:
+        return dataclasses.replace(cfg, n_layers=4, encoder=dataclasses
+                                   .replace(cfg.encoder, n_layers=4))
+    return dataclasses.replace(cfg, n_layers=7 if cfg.family == "hybrid"
+                               else 5)
+
+
+@functools.lru_cache(maxsize=None)
+def traced(cfg, kind: str, mesh) -> "dryrun.StepCounter":
+    """`dryrun.trace_step` of ``kind``'s smoke shape at ``cfg``'s depth
+    with the default knobs (once for the tests that share it)."""
+    return dryrun.trace_step(cfg, SHAPES[kind], mesh)
+
+
+def counts(cfg, kind: str, mesh) -> list:
+    """The counts of `depth_variants` of ``cfg`` for `dryrun_one`."""
+    return [dryrun._counts(traced(c, kind, mesh), 0.0)
+            for c, _ in dryrun.depth_variants(cfg, kind == "train")]
+
+
 @pytest.fixture(scope="module")
 def mesh():
     """A fake 2 x 2 mesh; the fake process group is gone after the
@@ -68,16 +102,17 @@ def mesh():
         dist.destroy_process_group()
 
 
-def reference_argument_bytes(arch: str, shape: InputShape, *,
-                             pm_miss_capacity: int = 0,
-                             zero_embed_head: bool = True) -> int:
+def reference_bytes(arch: str, shape: InputShape, *,
+                    pm_miss_capacity: int = 0,
+                    zero_embed_head: bool = True) -> dict:
     """One device's bytes of the step's arguments from the reference's
-    specs on a stand-in 2 x 2 mesh: parameters in bf16 (and fp32
-    AdaGrad accumulators when training) and the inputs (the cache's
-    ``len``, a host integer in the port, left out; with
-    ``pm_miss_capacity``, the replica cache's ids and rows that the
-    reference's dry run adds to the batch)."""
-    jcfg = jget_config(arch, smoke=True)
+    specs (its `deep` smoke config) on a stand-in 2 x 2 mesh, by part: ``params`` in bf16,
+    ``accum`` (fp32 AdaGrad accumulators, when training) and ``inputs``
+    (the batch; or the cache, the cache's ``len``, a host integer in the
+    port, left out, and the tokens; with ``pm_miss_capacity``, the
+    replica cache's ids and rows that the reference's dry run adds to
+    the batch), and the decode cache's share of them, ``cache``."""
+    jcfg = deep(jget_config(arch, smoke=True))
     jmesh = SimpleNamespace(axis_names=("data", "model"),
                             shape={"data": 2, "model": 2})
 
@@ -99,9 +134,9 @@ def reference_argument_bytes(arch: str, shape: InputShape, *,
     p = jdryrun.params_specs(jcfg)
     pspec = jsharding.param_pspecs(p, jcfg, jmesh, zero_layers=True,
                                    zero_embed_head=zero_embed_head)
-    n = total(p, pspec)
+    out = {"params": total(p, pspec), "accum": 0, "cache": 0}
     if shape.kind == "train":
-        n += total(jax.tree_util.tree_map(
+        out["accum"] = total(jax.tree_util.tree_map(
             lambda s: jax.ShapeDtypeStruct(s.shape, np.float32), p), pspec)
     inputs = jdryrun.input_specs(jcfg, shape)
     if pm_miss_capacity:
@@ -111,33 +146,71 @@ def reference_argument_bytes(arch: str, shape: InputShape, *,
                       pm_cache_rows=jax.ShapeDtypeStruct(
                           (C, jcfg.d_model), jdryrun.PARAM_DTYPE))
     if shape.kind != "decode":
-        return n + total(inputs, jsharding.batch_pspecs(jcfg, jmesh, inputs))
+        out["inputs"] = total(inputs, jsharding.batch_pspecs(jcfg, jmesh,
+                                                             inputs))
+        return out
     cache = {k: v for k, v in inputs["cache"].items() if k != "len"}
     cspec = jsharding.cache_pspecs(jcfg, jmesh, inputs["cache"])
-    n += total(cache, {k: cspec[k] for k in cache})
+    out["cache"] = total(cache, {k: cspec[k] for k in cache})
     tok = inputs["tokens"]
-    return n + nbytes(tok, ("data" if shape.global_batch % 2 == 0 else None,
-                            None))
+    out["inputs"] = out["cache"] + nbytes(
+        tok, ("data" if shape.global_batch % 2 == 0 else None, None))
+    return out
+
+
+def reference_argument_bytes(arch: str, shape: InputShape, **kw) -> int:
+    b = reference_bytes(arch, shape, **kw)
+    return b["params"] + b["accum"] + b["inputs"]
+
+
+def reference_output_bytes(arch: str, shape: InputShape) -> int:
+    """One device's bytes of what the step returns, by the reference's
+    specs: when training, the parameters and the accumulators (updated
+    in place) and the fp32 loss; otherwise the last position's bf16
+    logits (B, V), vocab-sharded over "model" with their partial sums
+    over "data" pending (the head's ZeRO-sharded contraction), so whole
+    over the batch, and when decoding the cache (written in place)."""
+    b = reference_bytes(arch, shape)
+    if shape.kind == "train":
+        return b["params"] + b["accum"] + 4
+    V = get_config(arch, smoke=True).vocab_size
+    return b["cache"] + shape.global_batch * (V // 2) * 2
 
 
 @pytest.mark.parametrize("kind", sorted(SHAPES))
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_dryrun_one_on_a_fake_mesh(mesh, arch, kind):
+    """Each family's `deep` smoke config through each step, its record
+    made from its cut depths' traces."""
     shape = SHAPES[kind]
-    rec = dryrun.dryrun_one(arch, shape, smoke=True, mesh=mesh,
-                            verbose=False)
+    cfg = deep(get_config(arch, smoke=True))
+    assert cfg not in [c for c, _ in dryrun.depth_variants(
+        cfg, kind == "train")]
+    rec = dryrun.dryrun_one(cfg, shape, mesh=mesh, verbose=False,
+                            traced=counts(cfg, kind, mesh))
     assert rec["status"] == "ok" and rec["n_devices"] == 4
-    assert rec["mesh"] == "2x2" and rec["zero_layers_effective"] is True
+    assert rec["arch"] == arch and rec["mesh"] == "2x2"
+    assert rec["zero_layers_effective"] is True
     assert rec["memory"]["argument_bytes"] == \
         reference_argument_bytes(arch, shape)
     assert rec["collective_bytes"] == \
         sum(rec["collective_bytes_per_op"].values()) > 0
     assert set(rec["collective_bytes_per_op"]) == set(dryrun.COLLECTIVES)
-    # the unit-scaled counts against the step at its full smoke depth
-    cfg = get_config(arch, smoke=True)
-    full = dryrun.trace_step(cfg, shape, mesh)
+    # the unit-scaled counts against the step at its full depth
+    full = traced(cfg, kind, mesh)
     assert rec["flops"] == full.flops > 0
     assert rec["collective_bytes_per_op"] == full.collective_bytes
+    assert rec["collective_bytes_per_phase"] == \
+        full.collective_bytes_per_phase
+    mem = rec["memory"]
+    assert set(mem["peak_per_phase"]) == (
+        {"forward", "backward", "update"} if kind == "train" else {kind})
+    assert mem["peak_per_phase"] == full.peak_per_phase
+    assert mem["peak_bytes"] == max(full.peak_per_phase.values()) \
+        >= mem["argument_bytes"] == full.entry_bytes
+    assert mem["temp_bytes"] == mem["peak_bytes"] - mem["argument_bytes"]
+    assert mem["output_bytes"] == full.output_bytes == \
+        reference_output_bytes(arch, shape)
     # the global FLOPs against torch's counter on plain fake tensors
     with FlopCounterMode(display=False) as fc:
         plain = dryrun.trace_step(cfg, shape, mesh, distributed=False)
@@ -145,24 +218,43 @@ def test_dryrun_one_on_a_fake_mesh(mesh, arch, kind):
     assert set(plain.collective_bytes.values()) == {0}
 
 
-@pytest.mark.parametrize("arch, kind", [("zamba2-1.2b", "train"),
-                                        ("whisper-medium", "train"),
-                                        ("zamba2-1.2b", "decode")])
-def test_unit_scaling_at_a_deeper_stack(mesh, arch, kind):
-    """Deeper than the smoke configs: zamba2 with 5 layers and the shared
-    block before every second (3 applications), whisper with 3 decoder
-    and 2 encoder layers; the scaled counts equal the full trace's."""
+@pytest.mark.parametrize("arch, kind, layers", [
+    ("zamba2-1.2b", "train", 7), ("whisper-medium", "train", 4),
+    ("zamba2-1.2b", "decode", 7), ("qwen3-moe-30b-a3b", "train", 5),
+    ("falcon-mamba-7b", "decode", 5), ("whisper-medium", "prefill", 4)])
+def test_unit_scaling_at_a_deeper_stack(mesh, arch, kind, layers):
+    """Deeper than the smoke configs and than the cut depths, so that
+    the scaling is not the identity: zamba2 with 7 layers and the shared
+    block before every second (4 applications; traced at 3 and 5 layers
+    in training, and decoding at 2 and 3 layers applying it twice, and 3
+    thrice), whisper with 4 decoder and 4 encoder layers (traced at 2 +
+    2, 3 + 2 and 2 + 3), plain stacks of 5 (traced at 2 and 3); the
+    scaled counts, the peak of each part of the step (`StepCounter`'s
+    ``peak_per_part``) and the output bytes equal the full trace's.
+    These are `deep` configs of `test_dryrun_one_on_a_fake_mesh`, whose
+    traces are shared (`traced`), held here part by part where that test
+    holds the record's phases."""
     cfg = get_config(arch, smoke=True)
-    cfg = dataclasses.replace(cfg, n_layers=5 if cfg.attn_every else 3)
-    shape = SHAPES[kind]
-    full = dryrun.trace_step(cfg, shape, mesh)
-    flops, coll = 0, dict.fromkeys(dryrun.COLLECTIVES, 0)
-    for c, coef in dryrun.depth_variants(cfg, kind == "train"):
-        t = dryrun.trace_step(c, shape, mesh)
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    if cfg.encoder is not None:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, n_layers=layers))
+    full = traced(cfg, kind, mesh)
+    variants = dryrun.depth_variants(cfg, kind == "train")
+    assert cfg not in [c for c, _ in variants]
+    flops = out = 0
+    coll = dict.fromkeys(dryrun.COLLECTIVES, 0)
+    peaks = dict.fromkeys(full.peak_per_part, 0)
+    for c, coef in variants:
+        t = traced(c, kind, mesh)
         flops += coef * t.flops
+        out += coef * t.output_bytes
         for k, v in t.collective_bytes.items():
             coll[k] += coef * v
+        for k, v in t.peak_per_part.items():
+            peaks[k] += coef * v
     assert flops == full.flops and coll == full.collective_bytes
+    assert peaks == full.peak_per_part and out == full.output_bytes
 
 
 @pytest.mark.parametrize("knobs", [
@@ -174,7 +266,10 @@ def test_knobs(mesh, knobs):
     as they are; "dots" recomputes fewer products, a padded vocabulary
     adds head work."""
     base = dryrun.dryrun_one("smollm-135m", SHAPES["train"], smoke=True,
-                             mesh=mesh, verbose=False)
+                             mesh=mesh, verbose=False,
+                             traced=counts(get_config("smollm-135m",
+                                                      smoke=True),
+                                           "train", mesh))
     rec = dryrun.dryrun_one("smollm-135m", SHAPES["train"], smoke=True,
                             mesh=mesh, verbose=False, **knobs)
     assert rec["status"] == "ok" and rec["collective_bytes"] > 0
@@ -196,18 +291,15 @@ def test_managed_step_on_a_fake_mesh(mesh, monkeypatch, arch,
     """The intent-managed embedding (``pm_miss_capacity``, strict, as the
     reference's dry run passes it) through the training step: the
     argument bytes with the replica cache in the batch, the scaled counts
-    and the FLOPs as for the unmanaged step, and no all-gather of the
-    table's rows (the buffer comes from a masked lookup and the backward
-    stays in each device's vocab block): of the all-gathers the managed
-    step adds to the unmanaged step's, none gives V rows."""
+    and memory of the `deep` config equal to its full trace, the FLOPs as
+    for the unmanaged step, and no all-gather of the table's rows (the
+    buffer comes from a masked lookup and the backward stays in each
+    device's vocab block): of the all-gathers the managed step adds to
+    the unmanaged step's at the smoke depth, none gives V rows."""
     shape = SHAPES["train"]
     knobs = dict(pm_miss_capacity=16, zero_embed_head=zero_embed_head)
-    rec = dryrun.dryrun_one(arch, shape, smoke=True, mesh=mesh,
-                            verbose=False, **knobs)
-    assert rec["status"] == "ok" and rec["pm_miss_capacity"] == 16
-    assert rec["memory"]["argument_bytes"] == \
-        reference_argument_bytes(arch, shape, **knobs)
-    cfg = get_config(arch, smoke=True)
+    k = dryrun.Knobs(**knobs)
+    cfg = deep(get_config(arch, smoke=True))
     gathered = []
     count = dryrun.StepCounter.collective
 
@@ -217,14 +309,30 @@ def test_managed_step_on_a_fake_mesh(mesh, monkeypatch, arch,
         count(self, func, out)
 
     monkeypatch.setattr(dryrun.StepCounter, "collective", collective)
-    full = dryrun.trace_step(cfg, shape, mesh, dryrun.Knobs(**knobs))
-    assert rec["flops"] == full.flops > 0
-    assert rec["collective_bytes_per_op"] == full.collective_bytes
+    # the all-gathers at the smoke depth, the first cut depth
+    (smoke, _), (c3, _) = dryrun.depth_variants(cfg, True)
+    assert smoke == get_config(arch, smoke=True)
+    at2 = dryrun.trace_step(smoke, shape, mesh, k)
     managed, gathered[:] = Counter(gathered), []
-    dryrun.trace_step(cfg, shape, mesh,
+    dryrun.trace_step(smoke, shape, mesh,
                       dryrun.Knobs(zero_embed_head=zero_embed_head))
     added = managed - Counter(gathered)
     assert added and not [s for s in added if s[0] == cfg.vocab_size]
+    rec = dryrun.dryrun_one(cfg, shape, mesh=mesh, verbose=False, traced=[
+        dryrun._counts(t, 0.0) for t in (at2, dryrun.trace_step(
+            c3, shape, mesh, k))], **knobs)
+    assert rec["status"] == "ok" and rec["pm_miss_capacity"] == 16
+    assert rec["memory"]["argument_bytes"] == \
+        reference_argument_bytes(arch, shape, **knobs)
+    full = dryrun.trace_step(cfg, shape, mesh, k)
+    assert rec["flops"] == full.flops > 0
+    assert rec["collective_bytes_per_op"] == full.collective_bytes
+    assert rec["collective_bytes_per_phase"] == \
+        full.collective_bytes_per_phase
+    mem = rec["memory"]
+    assert mem["peak_per_phase"] == full.peak_per_phase
+    assert mem["argument_bytes"] == full.entry_bytes
+    assert mem["output_bytes"] == full.output_bytes
     with FlopCounterMode(display=False) as fc:
         plain = dryrun.trace_step(cfg, shape, mesh, dryrun.Knobs(**knobs),
                                   distributed=False)

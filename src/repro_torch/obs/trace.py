@@ -24,12 +24,20 @@ traced or fully absent, across requeues and across runs; phase spans
 Span vocabulary (names are interned; two int64 arg slots ``a``/``b``
 ride in the arrays):
 
-  serving   serve.round > serve.enqueue / serve.plan / serve.probe /
-            serve.dispatch / serve.served, per-request
-            ``serve.request`` (enqueue -> served, a=rid b=attempts) and
-            ``serve.requeue`` instant points (a=rid)
+  serving   serve.round > serve.enqueue / serve.plan / serve.admit /
+            serve.probe / serve.split / serve.dispatch / serve.book /
+            serve.pipe; serve.plan > serve.plan.ctl / serve.plan.snapshot
+            / serve.plan.solve / serve.plan.refresh / prefetch.stage;
+            serve.pipe > serve.served / serve.note / serve.expire for each
+            batch it finishes (a=round; serve.served, serve.note and
+            serve.expire a=requests); per-request ``serve.request``
+            (enqueue -> served, a=rid b=attempts) and ``serve.requeue``
+            instant points (a=rid)
   training  train.signal / train.plan / train.refresh / train.step
-            (a=step)
+            (a=step), and the device marks ``train.mark.<part>`` (a=step)
+            for each part the step names (`train.steps.enter_phase`:
+            forward, backward, update, update/adagrad, update/rows) and
+            ``train.mark.end`` as the step function returns
   prefetch  the intent-lead-time pipeline stages (DESIGN.md §15):
             ``prefetch.plan`` — background plan-ahead (an instant at
             submission, a span when the boundary joins the candidate;
@@ -38,6 +46,18 @@ ride in the arrays):
             ``prefetch.drain`` — a deferred step's loss block (a=step);
             ``prefetch.stage`` — the serving tenure's staging-buffer
             gather (a=round)
+
+Device marks (`mark_device`) are zero-length records of when the
+device's stream reached a point, on the same `perf_counter_ns` clock as
+the spans: a CUDA event is recorded on the current stream and kept
+pending, and `resolve_device` places each completed one at an anchor's
+host time plus the device time from the anchor to it.  An anchor is an
+event recorded while the device is empty (synchronize, record,
+synchronize, read the clock); one is taken when marking starts and
+again at each ``resolve_device(anchor=True)``, which keeps the float32
+milliseconds of `torch.cuda.Event.elapsed_time` within about 2 us.  On a
+CPU tensor device the work is synchronous and a mark is the host's time
+at once.  Marks sit on a lane of their own (``tid`` `MARK_TID`).
 
 `to_chrome()` renders the buffer as Chrome trace-event JSON ("X"
 complete events + "i" instants, ts/dur in microseconds) — loadable in
@@ -50,11 +70,15 @@ from __future__ import annotations
 import json
 import time
 from collections import deque
+from operator import itemgetter
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 _DEFAULT_CAPACITY = 1 << 15
+#: the Chrome-trace lane of the device marks (request spans use 1..8)
+MARK_TID = 9
 
 
 class _NullSpan:
@@ -113,6 +137,14 @@ class SpanTracer:
         # stays small and positive (perf_counter_ns shares this origin
         # with perf_counter, so seconds-clock timestamps convert exactly)
         self.epoch_ns = time.perf_counter_ns()
+        # the wall clock (Unix ns) less this clock, noted once at the
+        # epoch: lays an export over a `torch.profiler` trace
+        self.wall_offset_ns = time.time_ns() - self.epoch_ns
+        # device marks: CUDA events not yet placed on the host's clock,
+        # (name, event, a, b) in stream order, and the anchor they are
+        # placed from, (event, host ns, device)
+        self._pending: deque = deque()
+        self._anchor: Optional[tuple] = None
 
     # ------------------------------------------------------------ writes
     def now_ns(self) -> int:
@@ -190,6 +222,48 @@ class SpanTracer:
             return _NULL_SPAN
         return _Span(self, name, tid, a, b)
 
+    def mark_device(self, name: str, *, a: int = 0, b: int = 0,
+                    device=None) -> None:
+        """Mark the point the work queued so far on ``device``'s current
+        stream reaches (a zero-length record once `resolve_device` places
+        it).  Off a CUDA device the mark is the host's time at once."""
+        if not self.enabled:
+            return
+        if getattr(device, "type", device) != "cuda":
+            t = time.perf_counter_ns()
+            self.record(name, t, t, tid=MARK_TID, a=a, b=b)
+            return
+        if self._anchor is None:
+            self._take_anchor(device)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        self._pending.append((name, ev, a, b))
+
+    def resolve_device(self, anchor: bool = False) -> None:
+        """Place every completed pending mark on the host's clock, in
+        stream order.  With ``anchor``, wait for the device, place them
+        all, and take a new anchor for the marks to come."""
+        if self._anchor is None:
+            return
+        ev0, t0, dev = self._anchor
+        if anchor:
+            torch.cuda.synchronize(dev)
+        while self._pending and self._pending[0][1].query():
+            name, ev, a, b = self._pending.popleft()
+            t = t0 + round(ev0.elapsed_time(ev) * 1e6)
+            self.record(name, t, t, tid=MARK_TID, a=a, b=b)
+        if anchor:
+            self._take_anchor(dev)
+
+    def _take_anchor(self, device) -> None:
+        """An event recorded on an empty device, and the host's time just
+        after it completed."""
+        torch.cuda.synchronize(device)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        torch.cuda.synchronize(device)
+        self._anchor = (ev, time.perf_counter_ns(), device)
+
     # ------------------------------------------------------------- reads
     @property
     def count(self) -> int:
@@ -202,9 +276,11 @@ class SpanTracer:
         return max(0, self._n - self.capacity)
 
     def events(self) -> List[dict]:
-        """Held spans, oldest-first, decoded to dicts (export surface).
-        The bounded deque evicts oldest-first, so iteration order is
-        already chronological — no ring-index arithmetic needed."""
+        """Held spans and placed marks, by start time, decoded to dicts
+        (export surface).  The ring holds them in the order they were
+        recorded — a span when it closes, after the spans it encloses, a
+        device mark when it is placed — so they are sorted here (stably:
+        records that start at one time keep the ring's order)."""
         names = self._names
         return [{
             "name": names[nid],
@@ -213,7 +289,8 @@ class SpanTracer:
             "tid": int(tid),
             "a": int(a),
             "b": int(b),
-        } for nid, t0, t1, tid, a, b in self._buf]
+        } for nid, t0, t1, tid, a, b in sorted(self._buf,
+                                                 key=itemgetter(1))]
 
     # ----------------------------------------------------------- exports
     def to_chrome(self) -> dict:
@@ -221,7 +298,9 @@ class SpanTracer:
 
         Spans become "X" complete events (required fields: name, ph, ts,
         pid, tid, plus dur), zero-duration records become "i" instants;
-        ts/dur are microseconds relative to the tracer's epoch."""
+        ts/dur are microseconds relative to the tracer's epoch, which
+        ``otherData`` gives on this clock (``epoch_ns``) and on the wall
+        clock (``epoch_ns + wall_offset_ns``, Unix ns)."""
         trace_events = []
         for e in self.events():
             ts = (e["t0_ns"] - self.epoch_ns) / 1e3
@@ -240,7 +319,6 @@ class SpanTracer:
             else:
                 ev["s"] = "t"       # instant scope: thread
             trace_events.append(ev)
-        trace_events.sort(key=lambda ev: ev["ts"])
         return {
             "traceEvents": trace_events,
             "displayTimeUnit": "ms",
@@ -248,6 +326,9 @@ class SpanTracer:
                 "spans_recorded": self._n,
                 "spans_dropped": self.dropped,
                 "sample": self.sample,
+                "clock": "perf_counter_ns",
+                "epoch_ns": self.epoch_ns,
+                "wall_offset_ns": self.wall_offset_ns,
             },
         }
 

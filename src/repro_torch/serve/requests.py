@@ -39,7 +39,7 @@ class ServeRequest:
     t_enqueue: float = 0.0
     attempts: int = 0
     tenant: str = "default"      # accounting label only (no admission
-    #   policy): per-tenant serve.requests/latency/requeued telemetry
+    #   policy): per-tenant serve.requeued telemetry
 
 
 class DriftingZipfStream:

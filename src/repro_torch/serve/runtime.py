@@ -294,8 +294,7 @@ class ServingRuntime:
         self.intent = StreamingIntentBuffer() if cfg.managed else None
         self.queue = RequestQueue(self.intent)
         self.scheduler = MicroBatchScheduler(self.batch_requests,
-                                             cfg.keys_per_request,
-                                             telemetry=self.telemetry)
+                                             cfg.keys_per_request)
         # the mesh bounds admission PER OWNER SHARD too: the planner
         # publishes `route_capacity` (the per-owner unique-miss bound over
         # the queued horizon) and the routed gather carries blocks of that
@@ -314,12 +313,14 @@ class ServingRuntime:
             plan_every=self.replan_every,
             owner_shards=self._owner_shards,
             telemetry=self.telemetry) if cfg.managed else None
-        # plan-vs-actual audit trail (DESIGN.md §14): only when traced —
-        # one record per replan boundary, over the same bus
+        # plan-vs-actual audit trail (DESIGN.md §14): only when the
+        # config asks for tracing — one record per replan boundary, over
+        # the same bus.  Keyed on the config, not on the tracer, so an
+        # injected tracer changes no work the runtime does
         self.attribution: Optional[PlanAttribution] = (
             PlanAttribution(owner_shards=self._owner_shards,
                             vocab=cfg.vocab, telemetry=self.telemetry)
-            if cfg.managed and self.tracer.enabled else None)
+            if cfg.managed and cfg.trace else None)
         self.plan: Optional[PlacementPlan] = None
         self._cache_ids = None           # device copy (refresh input)
         self._cache_ids_np = None        # host copy (admission-time probe)
@@ -593,12 +594,16 @@ class ServingRuntime:
     # ---------------------------------------------------------------- plan
     def _replan(self, rnd: int, res: ServeResult, cause: str) -> None:
         old_plan = self.plan     # the tenure the attribution flush closes
-        self._controller_step(rnd, res)
-        keys, slots, ticks = self.intent.snapshot(
-            self.queue.order_ids(), self.batch_requests)
+        tr = self.tracer
+        with tr.span("serve.plan.ctl", a=rnd):
+            self._controller_step(rnd, res)
+        with tr.span("serve.plan.snapshot", a=rnd):
+            keys, slots, ticks = self.intent.snapshot(
+                self.queue.order_ids(), self.batch_requests)
         if len(keys) == 0:
             return
-        plan = self.planner.replan_from_queue(keys, slots, ticks)
+        with tr.span("serve.plan.solve", a=rnd):
+            plan = self.planner.replan_from_queue(keys, slots, ticks)
         if self._ctl is not None and "cache_capacity" in self._auto:
             # intent-signal capacity steering: the plan's demand count IS
             # the bucket; a changed bucket re-plans over the same snapshot
@@ -609,7 +614,9 @@ class ServingRuntime:
                 self._set_capacity(int(new_cap), rnd)
                 res.capacity_resizes += 1
                 res.capacity_trace.append((rnd, int(new_cap)))
-                plan = self.planner.replan_from_queue(keys, slots, ticks)
+                with tr.span("serve.plan.solve", a=rnd):
+                    plan = self.planner.replan_from_queue(keys, slots,
+                                                          ticks)
         # a replan that kept the cache contents (sorted ids are canonical,
         # so set-equality IS array-equality) needs no re-gather when the
         # serving table is declared read-only (refresh_every == 0: no
@@ -623,14 +630,16 @@ class ServingRuntime:
         if same_cache and self.refresh_every == 0:
             self.telemetry.inc("serve.refresh_skipped")
         else:
-            self._cache_ids_np = self.plan.cache_ids
-            self._cache_ids = self._to_dev(self.plan.cache_ids)
-            # new cache generation: rebuild the memoized probe LUTs once
-            # (the per-batch probe never re-sorts the cache side again)
-            self._probe_view = CacheProbeView(self._cache_ids_np,
-                                              self.cfg.vocab)
-            self._staged_ids = None      # rebuilt below for the new tenure
-            self._refresh(res)
+            with tr.span("serve.plan.refresh", a=rnd):
+                self._cache_ids_np = self.plan.cache_ids
+                self._cache_ids = self._to_dev(self.plan.cache_ids)
+                # new cache generation: rebuild the memoized probe LUTs
+                # once (the per-batch probe never re-sorts the cache side
+                # again)
+                self._probe_view = CacheProbeView(self._cache_ids_np,
+                                                  self.cfg.vocab)
+                self._staged_ids = None  # rebuilt below for the new tenure
+                self._refresh(res)
         # per-tenure staged prefetch (DESIGN.md §15): the snapshot's
         # queued-horizon keys the new plan does NOT cache are exactly this
         # tenure's predicted miss set — gather them once into the staging
@@ -772,6 +781,57 @@ class ServingRuntime:
         self.telemetry.inc("serve.stage_topups")
         self.telemetry.inc("serve.stage_topup_rows", int(new_ids.size))
 
+    def _split_staged(self, probe):
+        """The staging split of a probed batch: ``(res_ids, staged_tok,
+        ext_lut, res_lut, n_res)``, or None without a staging buffer.
+
+        Folds the staging buffer into the cache side: staged miss tokens
+        become extended-cache hits (slot C+pos into the per-tenure
+        ``cache_rows ++ staging_rows`` concat) and only the residual
+        bucket rides the collective — the device path is then the PLAIN
+        managed lookup over a smaller miss buffer, with no extra gathers
+        or masks per round.  All host-side numpy on the compact (M,)
+        slots plus three (T,) LUT reads; the round's bookkeeping (miss
+        rate, overflow, zero-served) stays on the raw probe, so semantics
+        are bitwise the sequential loop's (tested).  Either way the
+        batch's residual misses accrue (`_note_residual`)."""
+        if self.pipeline_depth < 1:
+            return None
+        M = probe.buf_ids.shape[0]
+        nm = min(probe.n_miss, M)
+        ids = probe.buf_ids[:nm]
+        if self._staged_ids is None:
+            # no staging buffer this tenure: every miss is residual —
+            # accrue so the buffer can bootstrap the moment recurring
+            # intent shows up
+            self._note_residual(ids)
+            return None
+        C = self._cache_rows.shape[0]
+        pos = np.searchsorted(self._staged_ids, ids)
+        posc = np.minimum(pos, self._staged_ids.size - 1)
+        stg = self._staged_ids[posc] == ids
+        n_res = int(nm - np.count_nonzero(stg))
+        r_cap = max(8, 1 << max(0, n_res - 1).bit_length())
+        res_ids = np.full(r_cap, self.cfg.vocab, np.int32)
+        res_ids[:n_res] = ids[~stg]
+        # per-slot LUTs: extended-cache slot for staged slots, residual
+        # rank otherwise (pads + trash -> the residual trash row r_cap)
+        ext_lut = np.zeros(M + 1, np.int32)
+        ext_lut[:nm] = np.where(stg, C + posc, 0)
+        res_lut = np.full(M + 1, r_cap, np.int32)
+        res_lut[:nm] = np.where(
+            stg, r_cap, np.cumsum(~stg) - 1).astype(np.int32)
+        stg_lut = np.zeros(M + 1, bool)
+        stg_lut[:nm] = stg
+        staged_tok = stg_lut[probe.buf_slot]
+        n_hits = int(np.count_nonzero(stg))
+        self.telemetry.inc("serve.prefetch_hits", n_hits)
+        self.telemetry.inc("serve.prefetch_stale", n_res)
+        if self.attribution is not None:
+            self.attribution.note_prefetch(n_hits, n_res)
+        self._note_residual(ids[~stg])
+        return res_ids, staged_tok, ext_lut, res_lut, n_res
+
     def _refresh(self, res: ServeResult) -> None:
         self._cache_rows = self._refresh_rows(self._cache_ids,
                                               self._cache_ids_np)
@@ -844,8 +904,10 @@ class ServingRuntime:
                 if rids:
                     tr.record_many("serve.request", t0s, tr.now_ns(),
                                    tids=tids, a=rids, b=atts)
-            self.scheduler.note_served(fl.served, now)
-            self.queue.served(fl.served)
+            with tr.span("serve.note", a=len(fl.served)):
+                self.scheduler.note_served(fl.served, now)
+            with tr.span("serve.expire", a=len(fl.served)):
+                self.queue.served(fl.served)
             res.served += len(fl.served)
             if collect_outputs:
                 out_h = fl.out.cpu().numpy().reshape(
@@ -904,7 +966,8 @@ class ServingRuntime:
                         and (rnd - last_replan) % self.refresh_every == 0:
                     self._refresh(res)
 
-            batch = self.scheduler.admit(self.queue)
+            with tr.span("serve.admit", a=rnd):
+                batch = self.scheduler.admit(self.queue)
             if batch is None or (cfg.managed and self.plan is None):
                 if batch is not None:        # nothing planned yet: put back
                     self.queue.requeue(batch.reqs)
@@ -930,56 +993,8 @@ class ServingRuntime:
                         self.plan.miss_capacity,
                         owner_shards=self._owner_shards,
                         route_capacity=route_cap)
-                staged_split = None
-                if (self.pipeline_depth >= 1
-                        and self._staged_ids is not None):
-                    # fold the staging buffer into the cache side: staged
-                    # miss tokens become extended-cache hits (slot C+pos
-                    # into the per-tenure ``cache_rows ++ staging_rows``
-                    # concat) and only the residual bucket rides the
-                    # collective — the device path is then the PLAIN
-                    # managed lookup over a smaller miss buffer, with no
-                    # extra gathers or masks per round.  All host-side
-                    # numpy on the compact (M,) slots plus three (T,)
-                    # LUT reads; bookkeeping below (miss rate, overflow,
-                    # zero-served) stays on the raw probe, so semantics
-                    # are bitwise the sequential loop's (tested).
-                    C = self._cache_rows.shape[0]
-                    M = probe.buf_ids.shape[0]
-                    nm = min(probe.n_miss, M)
-                    ids = probe.buf_ids[:nm]
-                    pos = np.searchsorted(self._staged_ids, ids)
-                    posc = np.minimum(pos, self._staged_ids.size - 1)
-                    stg = self._staged_ids[posc] == ids
-                    n_res = int(nm - np.count_nonzero(stg))
-                    r_cap = max(8, 1 << max(0, n_res - 1).bit_length())
-                    res_ids = np.full(r_cap, cfg.vocab, np.int32)
-                    res_ids[:n_res] = ids[~stg]
-                    # per-slot LUTs: extended-cache slot for staged slots,
-                    # residual rank otherwise (pads + trash -> the
-                    # residual trash row r_cap)
-                    ext_lut = np.zeros(M + 1, np.int32)
-                    ext_lut[:nm] = np.where(stg, C + posc, 0)
-                    res_lut = np.full(M + 1, r_cap, np.int32)
-                    res_lut[:nm] = np.where(
-                        stg, r_cap, np.cumsum(~stg) - 1).astype(np.int32)
-                    stg_lut = np.zeros(M + 1, bool)
-                    stg_lut[:nm] = stg
-                    staged_tok = stg_lut[probe.buf_slot]
-                    staged_split = (res_ids, staged_tok, ext_lut,
-                                    res_lut, n_res)
-                    n_hits = int(np.count_nonzero(stg))
-                    self.telemetry.inc("serve.prefetch_hits", n_hits)
-                    self.telemetry.inc("serve.prefetch_stale", n_res)
-                    if self.attribution is not None:
-                        self.attribution.note_prefetch(n_hits, n_res)
-                    self._note_residual(ids[~stg])
-                elif self.pipeline_depth >= 1 and self.plan is not None:
-                    # no staging buffer this tenure: every miss is
-                    # residual — accrue so the buffer can bootstrap the
-                    # moment recurring intent shows up
-                    nm = min(probe.n_miss, probe.buf_ids.shape[0])
-                    self._note_residual(probe.buf_ids[:nm])
+                with tr.span("serve.split", a=rnd):
+                    staged_split = self._split_staged(probe)
                 with tr.span("serve.dispatch", a=rnd):
                     # one packed H2D transfer for the three (T,) index
                     # arrays
@@ -1006,55 +1021,56 @@ class ServingRuntime:
                             idx[2], probe.n_miss,
                             probe.buf_ids[:min(probe.n_miss,
                                                probe.buf_ids.shape[0])])
-                hit_h = probe.hit.reshape(B, K)
-                over_h = probe.overflow.reshape(B, K)
-                nv = len(batch.reqs)
-                miss_rate = float(1.0 - hit_h[:nv].mean())
-                res.miss_trace.append((rnd, miss_rate))
-                self.telemetry.set("serve.miss_rate", miss_rate)
-                if self.attribution is not None:
-                    self.attribution.note_batch(batch.tokens[:nv],
-                                                hit_h[:nv])
-                row_over = over_h[:nv].any(axis=1)
-                served_mask = ~row_over
-                served = [r for r, o in zip(batch.reqs, row_over) if not o]
-                failed = [r for r, o in zip(batch.reqs, row_over) if o]
-                if failed:
-                    res.overflow_batches += 1
-                    res.requeues += len(failed)
-                    self.telemetry.inc("serve.overflow_batches")
-                    self.telemetry.inc("serve.requeues", len(failed))
-                    for req in failed:
-                        self.telemetry.inc("serve.requeued",
-                                           tenant=req.tenant)
-                        if tr.enabled and tr.sampled(req.rid):
-                            tr.point("serve.requeue",
-                                     tid=1 + req.rid % 8, a=req.rid,
-                                     b=req.attempts + 1)
-                        if req.attempts + 1 > cfg.max_attempts:
-                            raise RuntimeError(
-                                f"request {req.rid} overflowed the miss "
-                                f"buffer {req.attempts + 1} times — the "
-                                "planner never caught up with the drift")
-                    self.queue.requeue(failed)
-                    drift = True            # hard drift signal
-                elif miss_rate > cfg.drift_factor * max(
-                        self.plan.predicted_miss_rate, 1e-3):
-                    drift = True            # soft drift signal
-                # invariant counter: a served row never contains a token
-                # that landed on the trash slot.  Recomputed from the
-                # probe's slot arrays — NOT from the row_over mask the
-                # served/failed split was derived from — so a future bug
-                # in that split shows up as zero_served > 0 instead of
-                # passing vacuously (silently served zeros).
-                trash_slot = probe.buf_ids.shape[0]
-                zeroed = ((probe.buf_slot == trash_slot)
-                          & ~probe.hit).reshape(B, K)
-                n_zeroed = int(
-                    np.count_nonzero(zeroed[:nv].any(axis=1) & served_mask))
-                res.zero_served += n_zeroed
-                if n_zeroed:
-                    self.telemetry.inc("serve.zero_served", n_zeroed)
+                with tr.span("serve.book", a=rnd):
+                    hit_h = probe.hit.reshape(B, K)
+                    over_h = probe.overflow.reshape(B, K)
+                    nv = len(batch.reqs)
+                    miss_rate = float(1.0 - hit_h[:nv].mean())
+                    res.miss_trace.append((rnd, miss_rate))
+                    self.telemetry.set("serve.miss_rate", miss_rate)
+                    if self.attribution is not None:
+                        self.attribution.note_batch(batch.tokens[:nv],
+                                                    hit_h[:nv])
+                    row_over = over_h[:nv].any(axis=1)
+                    served_mask = ~row_over
+                    served = [r for r, o in zip(batch.reqs, row_over) if not o]
+                    failed = [r for r, o in zip(batch.reqs, row_over) if o]
+                    if failed:
+                        res.overflow_batches += 1
+                        res.requeues += len(failed)
+                        self.telemetry.inc("serve.overflow_batches")
+                        self.telemetry.inc("serve.requeues", len(failed))
+                        for req in failed:
+                            self.telemetry.inc("serve.requeued",
+                                               tenant=req.tenant)
+                            if tr.enabled and tr.sampled(req.rid):
+                                tr.point("serve.requeue",
+                                         tid=1 + req.rid % 8, a=req.rid,
+                                         b=req.attempts + 1)
+                            if req.attempts + 1 > cfg.max_attempts:
+                                raise RuntimeError(
+                                    f"request {req.rid} overflowed the miss "
+                                    f"buffer {req.attempts + 1} times — the "
+                                    "planner never caught up with the drift")
+                        self.queue.requeue(failed)
+                        drift = True            # hard drift signal
+                    elif miss_rate > cfg.drift_factor * max(
+                            self.plan.predicted_miss_rate, 1e-3):
+                        drift = True            # soft drift signal
+                    # invariant counter: a served row never contains a token
+                    # that landed on the trash slot.  Recomputed from the
+                    # probe's slot arrays — NOT from the row_over mask the
+                    # served/failed split was derived from — so a future bug
+                    # in that split shows up as zero_served > 0 instead of
+                    # passing vacuously (silently served zeros).
+                    trash_slot = probe.buf_ids.shape[0]
+                    zeroed = ((probe.buf_slot == trash_slot)
+                              & ~probe.hit).reshape(B, K)
+                    n_zeroed = int(np.count_nonzero(
+                        zeroed[:nv].any(axis=1) & served_mask))
+                    res.zero_served += n_zeroed
+                    if n_zeroed:
+                        self.telemetry.inc("serve.zero_served", n_zeroed)
             else:
                 out = self._plain_fn(self.table, self._to_dev(batch.tokens))
                 served_mask = np.ones(len(batch.reqs), bool)
@@ -1064,13 +1080,14 @@ class ServingRuntime:
             # round's host work (probe + staging split + dispatch above)
             # — while that happened, the device was executing them.  At
             # depth 0 the batch drains immediately (the serial loop)
-            inflight.append(_InFlight(
-                out, self._mark_done(), batch.reqs, served, served_mask,
-                batch.tokens.shape))
-            while len(inflight) > self.pipeline_depth:
-                finish(inflight.popleft())
-            self.telemetry.observe(
-                "serve.round_ms", (time.perf_counter() - rnd_t0) * 1e3)
+            with tr.span("serve.pipe", a=rnd):
+                # the new batch's completion event is made here and the
+                # finished batches' are freed here (each a CUDA call)
+                inflight.append(_InFlight(
+                    out, self._mark_done(), batch.reqs, served,
+                    served_mask, batch.tokens.shape))
+                while len(inflight) > self.pipeline_depth:
+                    finish(inflight.popleft())
             if tr.enabled:
                 # the executed round's envelope (idle rounds have no
                 # batch and no envelope — the phase spans still show);

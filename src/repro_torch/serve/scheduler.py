@@ -20,7 +20,6 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from repro_torch.core.api import LatencyRecorder  # noqa: F401  (re-export)
-from repro_torch.obs.telemetry import Telemetry
 
 from .requests import RequestQueue, ServeRequest
 
@@ -43,12 +42,10 @@ class MicroBatchScheduler:
     counted in the queued-intent horizon, so they cannot push the batch
     past the planner's exact miss bound."""
 
-    def __init__(self, batch_requests: int, keys_per_request: int,
-                 telemetry: Optional[Telemetry] = None):
+    def __init__(self, batch_requests: int, keys_per_request: int):
         self.B = batch_requests
         self.K = keys_per_request
         self.latency = LatencyRecorder()
-        self.telemetry = telemetry
         self.n_served = 0
         self.n_batches = 0
 
@@ -75,13 +72,6 @@ class MicroBatchScheduler:
     def note_served(self, reqs: Sequence[ServeRequest],
                     now: Optional[float] = None) -> None:
         now = time.perf_counter() if now is None else now
-        bus = self.telemetry
         for req in reqs:
-            dt = now - req.t_enqueue
-            self.latency.record(dt)
-            if bus is not None:
-                # per-tenant accounting (labels are distinct bus keys;
-                # no admission policy reads these — accounting only)
-                bus.inc("serve.requests", tenant=req.tenant)
-                bus.observe("serve.latency", dt * 1e3, tenant=req.tenant)
+            self.latency.record(now - req.t_enqueue)
         self.n_served += len(reqs)

@@ -44,7 +44,8 @@ refresh cadence and pipeline depth are hill-climbed on measured loss drop
 per second.  Progress signals are published to the telemetry bus
 (``train.*`` records) and, with an enabled tracer, as spans
 (``train.signal``, ``train.plan``, ``train.refresh``,
-``prefetch.refresh``, ``train.step``, ``prefetch.drain``).
+``prefetch.refresh``, ``train.step``, ``prefetch.drain``), and the step's
+parts as device marks (``train.mark.<part>``, `_PhaseMarks`).
 
 The prefetch pipeline (``pipeline_depth >= 1``) defers reading each
 step's loss by up to that many steps, builds the next plan in a
@@ -61,6 +62,7 @@ from __future__ import annotations
 import os
 import time
 from collections import deque
+from contextlib import nullcontext
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Union
@@ -83,7 +85,8 @@ from repro_torch.pm.controller import (AUTO, Knob, OnlineController,
                                        resolve_knob)
 from repro_torch.pm.embedding import make_state
 from repro_torch.pm.planner import IntentPlanner, PlacementPlan
-from repro_torch.train.steps import make_opt_init, make_train_step
+from repro_torch.train.steps import (PHASE_LISTENERS, make_opt_init,
+                                     make_train_step)
 
 
 @dataclass
@@ -192,6 +195,34 @@ def restore(path: str, model, opt_state, backend=None) -> int:
         if isinstance(opt_state, AdamState):
             opt_state.count.fill_(int(tree["opt"].count))
     return step
+
+
+class _PhaseMarks:
+    """While the train step ``step`` runs, marks on ``device``'s clock
+    each part the step names (`train.steps.enter_phase`) as
+    ``train.mark.<part>``, and ``train.mark.end`` as the step function
+    returns (a=step).  Its listener is in `PHASE_LISTENERS` only inside
+    the ``with`` block, so a step run elsewhere later (a dry run's
+    counter) never sees it."""
+
+    __slots__ = ("tracer", "step", "device")
+
+    def __init__(self, tracer: SpanTracer, step: int, device):
+        self.tracer, self.step, self.device = tracer, step, device
+
+    def __call__(self, part: str) -> None:
+        self.tracer.mark_device("train.mark." + part, a=self.step,
+                                device=self.device)
+
+    def __enter__(self):
+        PHASE_LISTENERS.append(self)
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        PHASE_LISTENERS.remove(self)
+        if exc_type is None:
+            self("end")
+        return False
 
 
 def train_loop(cfg: ModelConfig, lc: LoopConfig,
@@ -303,6 +334,8 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
                         (time.perf_counter() - t0s) * 1e3)
             if lc.log_every and s % lc.log_every == 0 and log_here:
                 print(f"step {s:5d}  loss {loss_f:.4f}")
+        # the marks the device has passed; an empty pipeline re-anchors
+        tr.resolve_device(anchor=limit == 0)
 
     # background plan-ahead: ONE worker builds the next boundary's plan
     # candidate off the already-signaled window while steps run; only
@@ -475,7 +508,9 @@ def train_loop(cfg: ModelConfig, lc: LoopConfig,
         else:
             fn = step_fn(0)
         with tr.span("train.step", a=step):
-            loss, model, opt_state = fn(model, opt_state, batch)
+            with (_PhaseMarks(tr, step, dev) if tr.enabled
+                  else nullcontext()):
+                loss, model, opt_state = fn(model, opt_state, batch)
             if pipeline_depth == 0:
                 # blocks: the span covers real step time
                 loss = float(loss)

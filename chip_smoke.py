@@ -27,7 +27,10 @@ order it:
    time per call (1000 calls, no synchronise between them); then times
    the four kernels of qwen3-moe-30b-a3b's training path the same way at
    its shapes (its 151936 x 2048 embedding, 512-token steps, the
-   1024-row cache);
+   1024-row cache); then holds the selective scan's kernels against
+   their plain version at falcon-mamba-7b's training shape (1, 2048,
+   8192, 16) and times the forward and the backward beside their bounds
+   (bytes at the HBM rate, ``expf`` at the SFU rate, fp32 operations);
 4. serves a drifting Zipf request stream through
    `repro_torch.serve.ServingRuntime` at full width (vocab 256000, D 6144,
    64 requests of 64 keys per batch, 64 emulated shards) twice — with the
@@ -64,7 +67,9 @@ order it:
    the reference's 0.01 diverges at these widths, and 0.01 on smollm),
    checks finite losses, no overflow and which kernels ran, then the same
    run through the plain versions, whose loss trace must agree within
-   rtol 1e-4 / atol 1e-5; then trains each again, untraced and under
+   rtol 1e-4 / atol 1e-5 (the selective scan has no plain switch on the
+   card: falcon-mamba's plain run launches it too, so its comparison
+   holds the row kernels alone); then trains each again, untraced and under
    `torch.profiler`, to show where a step's time goes;
 6. decodes smollm-135m (full config), qwen3-moe-30b-a3b (4 of 48
    layers), mixtral-8x22b (2 of 56 layers, its sliding window, at
@@ -133,8 +138,9 @@ order it:
    reference's hill-climb rungs at train_4k; prints each record (with
    its argument, output and peak bytes a device) and the counts, and
    any combination in error fails;
-13. prints the kernel table as one JSON line, the card line and, last,
-   the device line.
+13. prints the kernel table as one JSON line (the selective scan's
+   forward and backward last, their launches those of phase 5's kernel
+   run of falcon-mamba-7b), the card line and, last, the device line.
 
 Any failure raises, so the script exits non-zero before those last lines.
 
@@ -250,6 +256,23 @@ SERVE_KERNELS = ("embed_gather", "pm_combine")
 HOST_CALLS = 1000             # calls per host-time measurement
 WORD_ROWS = 32768             # rows of the unaligned table copy (word path)
 L2_BYTES = 50 * 2 ** 20       # H100 L2 cache
+# the selective scan (Mamba-1): falcon-mamba-7b's training shape (B, S,
+# d_inner, N); the H100 SXM's SFU rate (16 exp2 a clock on each of 132
+# SMs at 1.98 GHz) and fp32 rate (67 TFLOP/s: 33.5 T instructions a
+# second, an FMA one); fp32 operations a state and position need: the
+# forward's decay argument, the update's product and FMA and y's FMA
+# (4); the backward's decay argument, g, a g, the state again (2), the
+# delta, u and A terms (8) and dB, dC (2): 15
+SCAN_SHAPE = (1, 2048, 8192, 16)
+SCAN_CHUNK = 256
+# the scan's counts in `ops.launch_counts`
+SCAN_COUNTS = ("selective_scan", "selective_scan_backward")
+SFU_PER_S = 132 * 16 * 1.98e9
+FP32_INSTR_PER_S = 33.5e12
+SCAN_FP32_OPS = (4, 15)
+# kernel against the plain version: time order against a doubling scan,
+# 2048 positions (the card test holds 1e-5 at 300)
+SCAN_RTOL = 1e-4
 # the simulator phase: `tests/data/seed_metrics.json`'s configuration (as
 # `tests/test_engine.py` runs it), quickstart's part 1 (KGE, 8 nodes,
 # scale 0.5) and `benchmarks/scale_sweep.py`'s 1e6-key ZIPF AdaPM row,
@@ -981,6 +1004,101 @@ def time_at_moe_shapes(dev, seed: int = SEED) -> dict:
     return out
 
 
+def scan_work(shape=SCAN_SHAPE) -> dict:
+    """What the selective scan's forward and backward need at ``shape``
+    (B, S, d_inner, N), counted from the shapes: the bytes each reads and
+    writes once (forward: u, delta, B, C, A, D in, y, h_last and the
+    saved chunk states out; backward: those inputs, the chunk states, dy
+    and dh_last in, every gradient out), one ``expf`` per state and
+    position, and `SCAN_FP32_OPS` fp32 operations per state and position
+    (an FMA counts one)."""
+    B, S, di, N = shape
+    states = B * di * N
+    chunks = -(-S // SCAN_CHUNK)
+    seq, rows, params = B * S * di, B * S * N, di * N + di
+    fwd_bytes = 4 * (3 * seq + 2 * rows + params + states * (chunks + 1))
+    bwd_bytes = 4 * (5 * seq + 4 * rows + 2 * params
+                     + states * (chunks + 2))
+    n = B * S * di * N
+    return {"bytes": (fwd_bytes, bwd_bytes), "expf": n,
+            "fp32_ops": tuple(k * n for k in SCAN_FP32_OPS)}
+
+
+def scan_bound_ms(nbytes: int, expf: int, ops: int) -> dict:
+    """The least time for that work: the larger of the bytes at the HBM
+    rate, the ``expf`` at the SFU rate and the operations at the fp32
+    rate, and which of them sets it."""
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "expf": expf / SFU_PER_S * 1e3,
+             "fp32": ops / FP32_INSTR_PER_S * 1e3}
+    by = max(parts, key=parts.get)
+    return {"bound_ms": parts[by], "bound_by": by, "bound_parts_ms": parts}
+
+
+def scan_operands(dev, shape=SCAN_SHAPE, seed: int = SEED):
+    """Seeded operands of the scan at ``shape``, in the range the model
+    gives them: delta = softplus(x - 4.6) (the init's dt bias), A = -(1 ..
+    N) (the init's ``-exp(A_log)``), D = 1."""
+    import torch
+    import torch.nn.functional as F
+    B, S, di, N = shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 9)
+    u = torch.randn((B, S, di), generator=g, device=dev)
+    delta = F.softplus(torch.randn((B, S, di), generator=g, device=dev)
+                       - 4.6)
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device=dev).expand(di, N).contiguous()
+    Bm, Cm = (torch.randn((B, S, N), generator=g, device=dev)
+              for _ in range(2))
+    return u, delta, A, Bm, Cm, torch.ones((di,), device=dev)
+
+
+def time_selective_scan(dev, shape=SCAN_SHAPE) -> dict:
+    """The selective scan's forward and backward kernels against the plain
+    version (`selective_scan_ref`) on the same operands at falcon-mamba-7b's
+    training shape: the largest difference of y, h_last and the six
+    gradients over the plain version's largest magnitude (raises past
+    SCAN_RTOL), each kernel's time (median of CUDA-event runs; the
+    backward as one `torch.autograd.grad` of y, which also runs its
+    second pass) beside its bound (`scan_bound_ms`), and the plain
+    version's times."""
+    import torch
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan import selective_scan
+    xs = [t.requires_grad_(True) for t in scan_operands(dev, shape)]
+    dy = torch.randn(xs[0].shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(3))
+    work = scan_work(shape)
+    out, results = {"shape": list(shape)}, {}
+    for name, fn, samples, reps in (
+            ("kernel", selective_scan, TIMING_SAMPLES, TIMING_REPS),
+            ("plain", selective_scan_ref, 5, 1)):
+        y, h_last = fn(*xs)
+        grads = torch.autograd.grad(y, xs, dy, retain_graph=True)
+        results[name] = [y.detach(), h_last.detach(), *grads]
+        with torch.no_grad():
+            fwd = median_ms(lambda: fn(*xs), samples, reps)
+        bwd = median_ms(lambda: torch.autograd.grad(
+            y, xs, dy, retain_graph=True), samples, reps)
+        del y, h_last, grads
+        out[name] = {"forward_ms": fwd, "backward_ms": bwd}
+    err = max(float((k - p).abs().max() / p.abs().max())
+              for k, p in zip(results["kernel"], results["plain"]))
+    if not err <= SCAN_RTOL:
+        raise AssertionError(f"selective_scan: kernel against plain, "
+                             f"relative error {err!r} > {SCAN_RTOL}")
+    out["max_rel_err"] = err
+    for i, part in enumerate(("forward", "backward")):
+        out[part] = dict(ms=out["kernel"][f"{part}_ms"],
+                         plain_ms=out["plain"][f"{part}_ms"],
+                         **scan_bound_ms(work["bytes"][i], work["expf"],
+                                         work["fp32_ops"][i]))
+    del results, xs
+    free_card()
+    return out
+
+
 GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
 
 
@@ -1153,9 +1271,12 @@ def train(arch: str, kernel: bool, collective: str = "emulated") -> dict:
     `segment_scatter_rows` and runs neither the row update nor the delta
     refresh; both gather and combine through the forward kernels.  On the
     mesh (``collective="mesh"``, in a started process group) the routing
-    packs and writes rows with `scatter_rows` on both arms.  Also returns
-    the steady step time (host clock between the first and the last loss
-    read)."""
+    packs and writes rows with `scatter_rows` on both arms.  A Mamba-1
+    model launches the selective scan's forward and backward on both
+    arms (the scan has no plain switch on the card: ``kernel=False``
+    takes the plain versions of the row kernels alone), every other
+    model neither.  Also returns the steady step time (host clock between
+    the first and the last loss read)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.train.loop import train_loop
@@ -1177,6 +1298,11 @@ def train(arch: str, kernel: bool, collective: str = "emulated") -> dict:
         raise AssertionError(f"{arch}: losses {res.losses}")
     if res.overflows != 0:
         raise AssertionError(f"{arch}: {res.overflows} overflow steps")
+    rows = {n: c for n, c in launches.items() if n not in SCAN_COUNTS}
+    for name in SCAN_COUNTS:
+        if (launches[name] > 0) != is_mamba1(cfg):
+            raise AssertionError(f"{arch}: {name} launched "
+                                 f"{launches[name]} times")
     if kernel:
         if cfg.tie_embeddings and collective == "mesh":
             want = ("segment_scatter_rows", "scatter_rows")
@@ -1193,7 +1319,7 @@ def train(arch: str, kernel: bool, collective: str = "emulated") -> dict:
         for name in never:
             if launches[name] != 0:
                 raise AssertionError(f"{arch}: {name} ran on the wrong arm")
-    elif any(launches.values()):
+    elif any(rows.values()):
         raise AssertionError(f"{arch}: plain run launched {launches}")
     return {"arch": arch, "n_layers": cfg.n_layers,
             "batch": [train_batch(arch), TRAIN_S],
@@ -1204,6 +1330,10 @@ def train(arch: str, kernel: bool, collective: str = "emulated") -> dict:
             "overflows": res.overflows, "recompiles": res.recompiles,
             "launches": launches, "wall_s": wall, "step_ms": step_ms(bus),
             "peak_alloc_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def is_mamba1(cfg) -> bool:
+    return cfg.family == "ssm" and cfg.ssm_version == 1
 
 
 def loss_clock():
@@ -1467,7 +1597,8 @@ def decode(arch: str, n_layers, dev) -> dict:
     state's bytes for a cache of the run's length and of LONG_CONTEXT
     positions (the ssm family's must be the same).  The decode path
     launches none of the kernels (its embedding is a plain index, as the
-    reference's ``jnp.take``)."""
+    reference's ``jnp.take``) but Mamba-1's scan forward, in the fused
+    prefill."""
     import torch
     from repro_torch.data.batches import make_batch
     from repro_torch.kernels import ops
@@ -1494,8 +1625,10 @@ def decode(arch: str, n_layers, dev) -> dict:
     _, _, prefill_s, steps_s = greedy_decode(model, cfg, prompt,
                                              DECODE_STEPS, enc_out=enc_out)
     launches = ops.launch_counts()
-    if any(launches.values()):
-        raise AssertionError(f"{arch}: decoding launched {launches}")
+    scans = launches.pop("selective_scan")
+    if any(launches.values()) or (scans > 0) != is_mamba1(cfg):
+        raise AssertionError(f"{arch}: decoding launched {launches} and "
+                             f"the scan {scans} times")
     state = {n: state_bytes(cfg, n)
              for n in (DECODE_PROMPT + DECODE_STEPS, LONG_CONTEXT)}
     if cfg.family == "ssm" and len(set(state.values())) != 1:
@@ -1655,7 +1788,7 @@ def check_mesh_backend(be, table, seed: int = SEED) -> dict:
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 7)
     err = {}
-    launches = dict.fromkeys(ops.KERNELS, 0)
+    launches = dict.fromkeys(ops.launch_counts(), 0)
 
     def mesh(fn, *a, **k):
         before = ops.launch_counts()
@@ -2385,6 +2518,9 @@ def main() -> int:
                         for k in err}), flush=True)
     print(f"[3/13] kernels at {MOE_ARCH}'s shapes " + json.dumps(
         dict(time_at_moe_shapes(dev), card=card)), flush=True)
+    scan = time_selective_scan(dev)
+    print("[3/13] selective_scan " + json.dumps(dict(scan, card=card)),
+          flush=True)
     phase("kernels")
 
     runs = [serve(table),
@@ -2532,6 +2668,22 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"],
             "host_us": t["host_us"], "library_host_us": t["library_host_us"]})
+    # the selective scan replaces no TPU kernel: its rows name the
+    # reference's plain scan; launches in the kernel training runs
+    for part, name in zip(("forward", "backward"), SCAN_COUNTS):
+        launches = sum(r["launches"][name] for r in trains + other_trains)
+        if launches <= 0:
+            raise AssertionError(f"selective_scan's {part} was not "
+                                 f"launched on a main path")
+        t = scan[part]
+        kernels.append({
+            "name": f"selective_scan.{part}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+            "replaces": None, "added_for": "src/repro/models/ssm.py:"
+            "mamba1_block's plain scan", "launches": launches,
+            "max_rel_err": scan["max_rel_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     print(f"[13/13] done in {time.perf_counter() - start:.1f} s; seconds per "
           f"phase " + json.dumps(phase_s))
     print(json.dumps({"kernels": kernels}))

@@ -19,11 +19,15 @@ kernel's launch geometry is fixed and takes every width as it is:
 * `adagrad_rows`: blocks of 8 warps over (row, column chunk), float4
   words where the width allows, scalars otherwise;
 * `segment_scatter_rows`: one-warp blocks over (sorted position, column
-  chunk), 16-byte stores where the width and alignment allow.
+  chunk), 16-byte stores where the width and alignment allow;
+* `selective_scan` (Mamba-1; N = 16 states only): 4-warp blocks over
+  (32 channels, sequence), 4 lanes a channel and 4 states a lane, time
+  walked in order in tiles of 16 positions; a ragged last block of
+  channels and tile of positions compute on zeros.
 
 No width is padded: a row splits into words and a ragged last chunk
-(``chip_smoke.py`` holds every kernel bit for bit at D in {1, 8, 576,
-6144} and on unaligned copies).  And no per-shape measurement is needed:
+(``chip_smoke.py`` holds every row kernel bit for bit at D in {1, 8,
+576, 6144} and on unaligned copies).  And no per-shape measurement is needed:
 at the main paths' shapes the gather, the combine and the row update
 reach 70 to 100 % of their memory bounds, and the two scatters are
 launch-bound (bounds under a microsecond) and within 10 % of their

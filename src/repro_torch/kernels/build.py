@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 
 LAUNCHERS = ("embed_gather_launch", "pm_combine_launch",
              "scatter_rows_launch", "segment_scatter_rows_launch",
-             "adagrad_rows_launch")
+             "adagrad_rows_launch", "selective_scan_fwd_launch",
+             "selective_scan_bwd_launch")
 
 _lib: Optional[ctypes.CDLL] = None
 

@@ -27,10 +27,15 @@ from .pm_forward import SortResidual
 from .pm_forward import pm_combine as _combine_kernel
 from .scatter_rows import scatter_rows as _scatter_kernel
 from .scatter_rows import segment_scatter_rows as _segment_scatter_kernel
+from .selective_scan import selective_scan as _scan_kernel
 
 KERNELS = {"embed_gather": _gather_kernel, "pm_combine": _combine_kernel,
            "adagrad_rows": _adagrad_kernel, "scatter_rows": _scatter_kernel,
-           "segment_scatter_rows": _segment_scatter_kernel}
+           "segment_scatter_rows": _segment_scatter_kernel,
+           "selective_scan": _scan_kernel}
+#: kernels whose backward is a launch of its own, counted as
+#: ``<name>_backward``
+BACKWARDS = ("selective_scan",)
 
 
 def embed_gather(table, ids, *, use_kernel: bool = True):
@@ -153,9 +158,14 @@ def unique_rows(ids, n_slots: int, pad_id: int = 0,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last `reset_launch_counts`."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts.update({f"{name}_backward": KERNELS[name].backward_launches
+                   for name in BACKWARDS})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for name in BACKWARDS:
+        KERNELS[name].backward_launches = 0

@@ -112,3 +112,57 @@ def segment_scatter_rows_ref(base, residual, grads):
     ids, sums = segment_sum(order, sorted_ids, slot, grads,
                             order.shape[0], base.shape[0])
     return scatter_rows_ref(base, ids, sums)
+
+
+def selective_scan_ref(u, delta, A, Bm, Cm, D, h0=None, *, chunk: int = 256):
+    """The Mamba-1 selective scan as plain torch ops, the composition
+    `models/ssm.py::mamba1_block` ran before the kernel (and runs on CPU
+    tensors and DTensors): ``a = exp(delta A)`` and ``b = delta u B``
+    materialised (B, S, di, N), `ssm.linear_scan` over them in chunks of
+    ``chunk`` from ``h0`` (zeros when None), ``y = sum_n h C + D u``.
+    u, delta (B, S, di); A (di, N); Bm, Cm (B, S, N); D (di,); h0 (B,
+    di, N).  Returns ``(y, h_last)``."""
+    from ..models.ssm import linear_scan
+    a = torch.exp(delta[..., None] * A)                       # (B,S,di,N)
+    b = (delta * u)[..., None] * Bm[:, :, None, :]
+    if h0 is None:
+        h0 = b.new_zeros((b.shape[0],) + b.shape[2:], dtype=torch.float32)
+    h, h_last = linear_scan(a, b, h0, chunk)
+    y = torch.einsum("bsdn,bsn->bsd", h, Cm)
+    return y + D * u, h_last
+
+
+def selective_scan_backward_ref(u, delta, A, Bm, Cm, D, h0, dy, dh_last):
+    """The selective scan's gradients by the kernel's reverse pass, one
+    position at a time: the states h_t forward from ``h0`` (zeros when
+    None), then from the last position ``g_t = dy_t C_t + a_{t+1}
+    g_{t+1}`` (seeded with ``dh_last``, zeros when None) and
+
+        ddelta_t = sum_n g_t (h_{t-1} a_t A + u_t B_t)
+        du_t = sum_n g_t delta_t B_t + D dy_t
+        dB_t = sum_d g_t delta_t u_t,   dC_t = sum_d dy_t h_t
+        dA = sum_{b,t} g_t h_{t-1} a_t delta_t,   dD = sum_{b,t} dy u
+        dh0 = a_0 g_0.
+
+    Returns ``(du, ddelta, dA, dB, dC, dD, dh0)``."""
+    a = torch.exp(delta[..., None] * A)                       # (B,S,di,N)
+    h = [u.new_zeros(a[:, 0].shape) if h0 is None else h0]
+    for t in range(u.shape[1]):
+        h.append(a[:, t] * h[-1]
+                 + (delta[:, t] * u[:, t])[..., None] * Bm[:, t, None, :])
+    g_next = torch.zeros_like(h[0]) if dh_last is None else dh_last
+    du, ddelta = torch.empty_like(u), torch.empty_like(u)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    dA = torch.zeros_like(A)
+    for t in reversed(range(u.shape[1])):
+        g = dy[:, t, :, None] * Cm[:, t, None, :] + g_next     # (B,di,N)
+        at, hp = a[:, t], h[t]
+        ddelta[:, t] = (g * (hp * at * A
+                             + u[:, t, :, None] * Bm[:, t, None, :])).sum(-1)
+        du[:, t] = (g * delta[:, t, :, None]
+                    * Bm[:, t, None, :]).sum(-1) + D * dy[:, t]
+        dB[:, t] = (g * (delta[:, t] * u[:, t])[..., None]).sum(1)
+        dC[:, t] = (dy[:, t, :, None] * h[t + 1]).sum(1)
+        dA += (g * hp * at * delta[:, t, :, None]).sum(0)
+        g_next = at * g
+    return du, ddelta, dA, dB, dC, (dy * u).sum((0, 1)), g_next

@@ -1,10 +1,14 @@
 """State-space blocks (the twin of `repro/models/ssm.py`): Mamba-1
 (selective scan, falcon-mamba) and a simplified Mamba-2 / SSD block (the
-zamba2 trunk).  Plain torch, as the reference is plain `jnp`: no Pallas
-kernel computes any of it.
+zamba2 trunk).  The reference is plain `jnp`: no Pallas kernel computes
+any of it.  Mamba-1's training and prefill go through
+`kernels.selective_scan`: on the card a CUDA kernel that keeps the states
+in registers; on CPU tensors and DTensors its plain version
+(`kernels/ref.py::selective_scan_ref`: ``a`` and ``b`` materialised, then
+`linear_scan`), the arithmetic of this module's own Mamba-2 path.
 
-Training and prefill run the linear recurrence ``h_t = a_t * h_{t-1} +
-b_t`` through `linear_scan`, the reference's chunked scan as a
+Mamba-2's training and prefill run the linear recurrence ``h_t = a_t *
+h_{t-1} + b_t`` through `linear_scan`, the reference's chunked scan as a
 `torch.autograd.Function`: within a chunk a log-depth (Hillis-Steele)
 doubling scan with `_scan_op`'s algebra, across chunks a loop that
 carries ``h``.  Its backward is the same scan reversed in time, so it
@@ -19,8 +23,8 @@ materialised ``a_full`` without a (B, S, nh, hd, N) copy.
 
 Decoding passes ``state`` = (conv ring (B, K-1, C), h).  A one-token
 step is the reference's single recurrence step ``a_0 * h + b_0``; a
-longer chunk (the fused prefill) runs `linear_scan` seeded with the
-state's ``h``, and its causal conv reads the state's ring in place of
+longer chunk (the fused prefill) runs the scan seeded with the state's
+``h``, and its causal conv reads the state's ring in place of
 zero padding.  Both write the state back: the final ``h`` and the last
 K-1 conv inputs.  The reference's prefill of these families instead runs
 the prompt one position at a time (`repro/train/steps.py`,
@@ -35,6 +39,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ref import selective_scan_ref
+from ..kernels.selective_scan import selective_scan
 from .layers import _dense_init
 from .layouts import reduce_partials
 
@@ -176,7 +182,7 @@ def _recur(a, b, state, scan_chunk: int):
 
 
 def mamba1_block(x, p: Params, *, ssm_state: int, dt_rank: int,
-                 state: Optional[Tuple] = None, scan_chunk: int = 256):
+                 state: Optional[Tuple] = None):
     """x: (B, S, D).  ``state`` = (conv_state (B,K-1,di), h (B,di,N)) for
     decoding.  Returns (out, new_state), new_state None without a state."""
     N = ssm_state
@@ -193,13 +199,12 @@ def mamba1_block(x, p: Params, *, ssm_state: int, dt_rank: int,
     dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])         # (B,S,di)
     A = -torch.exp(p["A_log"].float())                        # (di,N)
 
-    dtf = dt.float()
-    a = torch.exp(dtf[..., None] * A)                         # (B,S,di,N)
-    b = (dtf * x_c.float())[..., None] * Bmat.float()[:, :, None, :]
-    h, new_h = _recur(a, b, state, scan_chunk)
-
-    y = torch.einsum("bsdn,bsn->bsd", h, Cmat.float())
-    y = y + p["D_skip"].float() * x_c.float()
+    # a decode step stays the reference's single step ``a_0 h + b_0``
+    scan = (selective_scan_ref if state is not None and x.shape[1] == 1
+            else selective_scan)
+    xf = x_c.float()
+    y, new_h = scan(xf, dt.float(), A, Bmat.float(), Cmat.float(),
+                    p["D_skip"].float(), None if state is None else state[1])
     y = y.to(x.dtype) * F.silu(z)
     out = y @ p["out_proj"]
     return out, (None if state is None else (new_conv, new_h))

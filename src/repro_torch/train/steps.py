@@ -305,7 +305,8 @@ def make_prefill_decode_step(cfg: ModelConfig, *, fsdp_spec=None
     P)``.  The prompt runs as one chunked forward, for every family: the
     attention families write k/v for all P positions at once and
     `layers.decode_attention` is causal within the chunk; the recurrent
-    families (ssm, hybrid) run the chunk through `ssm.linear_scan` seeded
+    families (ssm, hybrid) run the chunk through their scan (Mamba-1's
+    `kernels.selective_scan`, Mamba-2's `ssm.linear_scan`) seeded
     with the cache's ``h`` and a causal conv padded by the cache's conv
     ring, and write back the final ``h`` and ring (the hybrid's shared
     block fills each application's KV cache as the attention families

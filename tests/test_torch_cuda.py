@@ -25,9 +25,11 @@ from repro_torch.kernels.pm_forward import pm_combine
 from repro_torch.kernels.ref import (adagrad_row_update_ref,
                                      embed_gather_ref, pm_combine_ref,
                                      scatter_rows_ref,
-                                     segment_scatter_rows_ref)
+                                     segment_scatter_rows_ref,
+                                     selective_scan_ref)
 from repro_torch.kernels.scatter_rows import (scatter_rows,
                                               segment_scatter_rows)
+from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.launch.mesh import init_group
 from repro_torch.models.layers import decode_attention, flash_attention
 from repro_torch.models.model import (init_cache, init_model, load_params,
@@ -87,7 +89,9 @@ def test_kernels_match_plain(dev, D, dtype):
     assert torch.equal(raw(got), raw(want))
     assert ops.launch_counts() == {"embed_gather": 1, "pm_combine": 1,
                                    "adagrad_rows": 0, "scatter_rows": 0,
-                                   "segment_scatter_rows": 0}
+                                   "segment_scatter_rows": 0,
+                                   "selective_scan": 0,
+                                   "selective_scan_backward": 0}
 
 
 @pytest.mark.parametrize("D", [1, 3, 8, 576, 6144])
@@ -127,7 +131,9 @@ def test_training_kernels_match_plain(dev, D, dtype):
                                                       rows)))
     assert ops.launch_counts() == {"embed_gather": 0, "pm_combine": 0,
                                    "adagrad_rows": 1, "scatter_rows": 1,
-                                   "segment_scatter_rows": 0}
+                                   "segment_scatter_rows": 0,
+                                   "selective_scan": 0,
+                                   "selective_scan_backward": 0}
 
 
 @pytest.mark.parametrize("arch", ["nemotron-4-15b", "smollm-135m",
@@ -138,7 +144,9 @@ def test_train_loop_on_the_card_equals_the_cpu(dev, arch, tmp_path):
     CUDA through the kernels and on the CPU through the plain versions:
     the loss traces agree within rtol 1e-4 / atol 1e-5 (matmuls sum in
     other orders on the card), and the
-    kernels of each arm ran."""
+    kernels of each arm ran; a Mamba-1 model's selective scan twice a
+    layer and step forward (the step rematerialises each layer) and once
+    backward."""
     cfg = get_config(arch, smoke=True)
     model = init_model(cfg, torch.Generator().manual_seed(0))
     state = make_opt_init()(model)
@@ -153,6 +161,9 @@ def test_train_loop_on_the_card_equals_the_cpu(dev, arch, tmp_path):
     ops.reset_launch_counts()
     got = train_loop(cfg, lc)
     counts = ops.launch_counts()
+    mamba1 = cfg.family == "ssm" and cfg.ssm_version == 1
+    assert (counts["selective_scan"], counts["selective_scan_backward"]) \
+        == ((2 * cfg.n_layers * 24, cfg.n_layers * 24) if mamba1 else (0, 0))
     np.testing.assert_allclose(got.losses, want.losses, rtol=1e-4,
                                atol=1e-5)
     assert got.overflows == want.overflows == 0
@@ -212,7 +223,7 @@ def test_forward_on_the_card_equals_the_cpu(dev, arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-medium",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "falcon-mamba-7b"])
 def test_remat_gradients_on_the_card_equal_no_remat(dev, arch):
     """The smoke config's loss and gradients on the card with each layer
     rematerialised ("full" and "dots") equal those without, bit for
@@ -258,6 +269,51 @@ def test_linear_scan_on_the_card_equals_the_cpu(dev, broadcast):
                                    atol=1e-5 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_selective_scan_on_the_card_equals_plain(dev, with_h0):
+    """The kernels against `selective_scan_ref` on the card: 2 sequences of
+    300 positions (a second, ragged chunk of 256) over 40 channels (a
+    second, ragged block of 32), N = 16.  y, h_last and the seven
+    gradients of sum(y * w) + sum(h_last * w_last) within rtol 1e-5 /
+    atol 1e-5 times the largest magnitude: the kernels add in time order
+    where the plain version's doubling scan adds in a tree.  A second
+    backward gives the same bits, and each call counts one launch."""
+    B, S, di, N = 2, 300, 40, 16
+    g = torch.Generator().manual_seed(9)
+    u = torch.randn((B, S, di), generator=g)
+    delta = torch.nn.functional.softplus(torch.randn((B, S, di),
+                                                     generator=g) - 3)
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(di, N) \
+        * (1 + 0.1 * torch.rand((di, N), generator=g))
+    Bm, Cm = (torch.randn((B, S, N), generator=g) for _ in range(2))
+    D = torch.randn((di,), generator=g)
+    h0 = torch.randn((B, di, N), generator=g)
+    w = torch.randn((B, S, di), generator=g).to(dev)
+    w_last = torch.randn((B, di, N), generator=g).to(dev)
+    ops_ = [t.to(dev) for t in (u, delta, A, Bm, Cm, D)] \
+        + ([h0.to(dev)] if with_h0 else [])
+    out = []
+    for fn in (selective_scan_ref, selective_scan):
+        xs = [t.clone().requires_grad_(True) for t in ops_]
+        launches = (selective_scan.launches,
+                    selective_scan.backward_launches)
+        y, h_last = fn(*xs[:6], xs[6] if with_h0 else None)
+        loss = (y * w).sum() + (h_last * w_last).sum()
+        grads = torch.autograd.grad(loss, xs, retain_graph=True)
+        if fn is selective_scan:
+            again = torch.autograd.grad(loss, xs)
+            torch.cuda.synchronize()
+            for x, z in zip(grads, again):
+                assert torch.equal(raw(x), raw(z))
+            assert (selective_scan.launches - launches[0],
+                    selective_scan.backward_launches - launches[1]) == (1, 2)
+        out.append([y, h_last, *grads])
+    for want, got in zip(*out):
+        want, got = want.detach().cpu(), got.detach().cpu()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
 @pytest.mark.parametrize("window", [0, 300])
 def test_flash_attention_on_the_card_equals_decode_attention(dev, window):
     """Blocked causal attention over 2000 positions (4 q blocks, the last
@@ -287,7 +343,9 @@ def test_decode_on_the_card_equals_the_cpu(dev, arch):
     on the CPU (one set of weights, the CPU run's greedy tokens fed to
     both; whisper's caches first take the encoder's output over the same
     frames): logits within rtol 1e-4 / atol 1e-5 at every step, and no
-    kernel launched (the decode path's embedding is a plain index)."""
+    kernel launched (the decode path's embedding is a plain index) but
+    Mamba-1's scan, once a layer in the prefill (a one-token step is the
+    plain single step)."""
     cfg = get_config(arch, smoke=True)
     model = init_model(cfg, torch.Generator().manual_seed(0))
     on_card = init_model(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -318,7 +376,10 @@ def test_decode_on_the_card_equals_the_cpu(dev, arch):
     np.testing.assert_allclose(lg_d.cpu().numpy(), lg_c.numpy(), rtol=1e-4,
                                atol=1e-5)
     assert c_dev["len"] == c_cpu["len"] == 10
-    assert set(ops.launch_counts().values()) == {0}
+    counts = ops.launch_counts()
+    mamba1 = cfg.family == "ssm" and cfg.ssm_version == 1
+    assert counts.pop("selective_scan") == (cfg.n_layers if mamba1 else 0)
+    assert set(counts.values()) == {0}
 
 
 @pytest.mark.parametrize("D", [1, 8, 576, 6144])

@@ -106,7 +106,9 @@ def test_cpu_path_counts_no_launches():
                    torch.zeros(2, dtype=torch.int32), table, table)
     assert ops.launch_counts() == {"embed_gather": 0, "pm_combine": 0,
                                    "adagrad_rows": 0, "scatter_rows": 0,
-                                   "segment_scatter_rows": 0}
+                                   "segment_scatter_rows": 0,
+                                   "selective_scan": 0,
+                                   "selective_scan_backward": 0}
 
 
 @pytest.mark.parametrize("n, n_unique", [(40, 40), (40, 64), (7, 7)])

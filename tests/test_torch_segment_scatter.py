@@ -26,6 +26,7 @@ from repro.pm.collectives import EmulatedBackend as JBackend
 from repro.pm.embedding import pm_lookup as jpm_lookup
 from repro_torch.kernels import adagrad_rows, embed_gather, ops, pm_forward
 from repro_torch.kernels import scatter_rows as scatter_mod
+from repro_torch.kernels import selective_scan as scan_mod
 from repro_torch.kernels.build import CSRC, LAUNCHERS
 from repro_torch.kernels.launch import (block_format, check_rows,
                                         index_operand)
@@ -272,7 +273,7 @@ def test_every_wrapper_packs_the_block_its_launcher_declares():
     blocks = described_blocks()
     wrappers = (embed_gather._launch, pm_forward._launch,
                 adagrad_rows._launch, scatter_mod._scatter,
-                scatter_mod._segment)
+                scatter_mod._segment, scan_mod._fwd, scan_mod._bwd)
     assert sorted(blocks) == sorted(LAUNCHERS)
     assert sorted(w.cname for w in wrappers) == sorted(LAUNCHERS)
     for w in wrappers:

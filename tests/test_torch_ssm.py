@@ -127,7 +127,9 @@ def test_causal_conv_with_a_state():
 def block_check(jinit, jblock, tblock, kw, S: int = 10, chunk: int = 4):
     """One block's output and the gradients of a weighted sum of it with
     respect to x and every parameter, JAX against the port, on the smoke
-    config's widths (S = 10 over chunks of 4: the last one ragged)."""
+    config's widths (S = 10 over chunks of 4: the last one ragged; the
+    port's Mamba-1 block takes no chunk, its scan walks time in order on
+    the card and its plain version scans in chunks of 256)."""
     cfg = get_config(ARCH if jblock is jssm.mamba1_block else "zamba2-1.2b",
                      smoke=True)
     jp = jinit(jax.random.PRNGKey(2), cfg)
@@ -144,7 +146,8 @@ def block_check(jinit, jblock, tblock, kw, S: int = 10, chunk: int = 4):
     tp = {k: torch.tensor(np.asarray(v), requires_grad=True)
           for k, v in jp.items()}
     tx = torch.tensor(x, requires_grad=True)
-    out, state = tblock(tx, tp, scan_chunk=chunk, **kw(cfg))
+    chunked = {} if tblock is ssm.mamba1_block else {"scan_chunk": chunk}
+    out, state = tblock(tx, tp, **chunked, **kw(cfg))
     assert state is None
     (out * torch.from_numpy(w)).sum().backward()
 

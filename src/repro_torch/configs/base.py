@@ -27,6 +27,7 @@ class EncoderConfig:
 class ModelConfig:
     arch_id: str
     family: str                   # dense | moe | ssm | hybrid | encdec | vlm
+    #                               | falcon_h1
     n_layers: int
     d_model: int
     n_heads: int                  # 0 for attention-free (ssm)
@@ -45,8 +46,23 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_version: int = 1          # 1 = mamba1 (falcon-mamba), 2 = mamba2
     ssm_head_dim: int = 64        # mamba2 head dim
+    ssm_heads: int = 0            # falcon_h1 mixer heads (d_inner = heads x
+    #                               ssm_head_dim); 0: d_inner from ssm_expand
+    ssm_groups: int = 1           # falcon_h1 mixer B/C groups
     # --- hybrid (zamba2) ---
     attn_every: int = 0           # shared attention block every k ssm blocks
+    # --- muP multipliers (falcon_h1; 1 elsewhere), the published names ---
+    embedding_multiplier: float = 1.0   # the embedded rows
+    lm_head_multiplier: float = 1.0     # the logits
+    attention_in_multiplier: float = 1.0
+    attention_out_multiplier: float = 1.0
+    key_multiplier: float = 1.0         # k, before RoPE and the 1/sqrt(hd)
+    ssm_in_multiplier: float = 1.0
+    ssm_out_multiplier: float = 1.0
+    #: in_proj's z, x, B, C and dt sections
+    ssm_multipliers: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0, 1.0)
+    #: the MLP's gate (before SiLU) and its down projection's output
+    mlp_multipliers: Tuple[float, ...] = (1.0, 1.0)
     # --- attention flavor ---
     sliding_window: int = 0       # 0 = full attention
     rope_theta: float = 10_000.0
@@ -65,6 +81,10 @@ class ModelConfig:
     source: str = ""              # citation for the config
 
     def __post_init__(self):
+        # a configuration read from JSON gives lists: kept as tuples, so
+        # the config stays hashable
+        for name in ("ssm_multipliers", "mlp_multipliers"):
+            object.__setattr__(self, name, tuple(getattr(self, name)))
         if self.n_heads and self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.n_heads and self.n_kv_heads:
@@ -73,6 +93,8 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:
+        if self.ssm_heads:
+            return self.ssm_heads * self.ssm_head_dim
         return self.ssm_expand * self.d_model
 
     @property
@@ -144,6 +166,14 @@ class ModelConfig:
             di, N = self.d_inner, self.ssm_state
             per_layer += D * 2 * di + di * self.ssm_conv + 2 * di \
                 + di * N + di + di * D + D  # mamba2-ish block
+        elif self.family == "falcon_h1":
+            di, nh = self.d_inner, self.ssm_heads
+            conv = di + 2 * self.ssm_groups * self.ssm_state
+            per_layer += D * (di + conv + nh) + conv * (self.ssm_conv + 1) \
+                + 3 * nh + di + di * D                       # the mixer
+            per_layer += D * self.n_heads * hd \
+                + 2 * D * self.n_kv_heads * hd + self.n_heads * hd * D \
+                + 3 * D * self.d_ff + 2 * D     # attention, MLP, norms
         n += L * per_layer
         if self.family == "hybrid" and self.attn_every:
             hd_ = self.head_dim

@@ -1,6 +1,7 @@
 """Architecture registry: ``get_config(arch_id)`` resolution for every
 architecture of the reference (the dense, MoE, ssm, hybrid, vlm and
-encdec families)."""
+encdec families), and for the port's own architectures, which have no
+twin in the reference (`PORT_ONLY`) and so stay out of ``ARCH_IDS``."""
 from importlib import import_module
 
 _MODULES = {
@@ -18,9 +19,17 @@ _MODULES = {
 
 ARCH_IDS = tuple(_MODULES)
 
+#: architectures of the port alone: the reference runs none of them, so
+#: nothing that walks ``ARCH_IDS`` against the reference meets them
+PORT_ONLY = {
+    "falcon-h1-34b": "repro_torch.configs.falcon_h1_34b",
+}
+
 
 def get_config(arch_id: str, smoke: bool = False):
-    if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    mod = import_module(_MODULES[arch_id])
+    modules = {**_MODULES, **PORT_ONLY}
+    if arch_id not in modules:
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{ARCH_IDS + tuple(PORT_ONLY)}")
+    mod = import_module(modules[arch_id])
     return mod.SMOKE if smoke else mod.CONFIG

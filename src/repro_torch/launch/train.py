@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import argparse
 
-from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.configs.registry import ARCH_IDS, PORT_ONLY, get_config
 from repro_torch.pm.controller import AUTO
 from repro_torch.train.loop import LoopConfig, train_loop
 
@@ -25,7 +25,8 @@ def _auto_or_int(v: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", choices=ARCH_IDS, default="smollm-135m")
+    ap.add_argument("--arch", choices=ARCH_IDS + tuple(PORT_ONLY),
+                    default="smollm-135m")
     ap.add_argument("--smoke", action="store_true", default=True,
                     help="reduced config (CPU-runnable); default on")
     ap.add_argument("--full", dest="smoke", action="store_false",

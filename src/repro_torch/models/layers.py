@@ -292,7 +292,9 @@ def attention_block(x, p: Params, cfg, positions, *, cache=None,
                     cache_len: Optional[int] = None, cross_kv=None,
                     causal: bool = True):
     """Full attention sub-layer: projections + rope + attention + output.
-    Returns ``(out, cache)``.
+    Returns ``(out, cache)``.  The keys are scaled by
+    ``cfg.key_multiplier`` (before RoPE and the ``1 / sqrt(hd)`` of the
+    scores; 1 but in Falcon-H1).
 
     ``positions``: (B, S), or (B, S, 3) with ``cfg.mrope`` (M-RoPE).
     ``cross_kv``: the encoder side's (k, v), each (B, F, H, hd), for
@@ -312,6 +314,8 @@ def attention_block(x, p: Params, cfg, positions, *, cache=None,
         o = flash_attention(q, *cross_kv, causal=False)
         return merge_heads(o) @ p["wo"], cache
     k = split_heads(x @ p["wk"], KvH, hd)
+    if cfg.key_multiplier != 1.0:                    # Falcon-H1's muP
+        k = k * cfg.key_multiplier
     v = split_heads(x @ p["wv"], KvH, hd)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta,
                            cfg.mrope_sections if cfg.mrope else None)

@@ -15,7 +15,12 @@
 * encdec (Whisper): an encoder of non-causal self-attention layers over
   precomputed frame embeddings (the audio frontend is a stub), and
   decoder layers of causal self-attention, cross-attention to the
-  encoder's output and an MLP.
+  encoder's output and an MLP;
+* falcon_h1 (Falcon-H1, no twin in the reference): parallel-hybrid
+  layers (`ParallelHybridLayer`), GQA attention and the published
+  Mamba-2 mixer side by side on one norm, then a SwiGLU MLP, with muP
+  multipliers on every branch, on the embedded rows and on the logits.
+  Trained only: its decoding raises (`check_decodes`).
 
 The reference stacks every layer's weights along a leading layer axis and
 scans over it (branching on the layer index with `lax.cond` in the
@@ -74,17 +79,22 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.sharding import block_rows, placements
+from repro_torch.obs.trace import enter_phase
 from repro_torch.pm.embedding import pm_lookup
 from .layers import (_dense_init, attention_block, init_attention, init_mlp,
                      init_norm, mlp_block, norm)
 from .layouts import (between_layers, laid_out_grad, reduce_partials,
                       reduce_partials_both_ways)
 from .moe import init_moe, moe_block
-from .ssm import init_mamba1, init_mamba2, mamba1_block, mamba2_block
+from .ssm import (init_mamba1, init_mamba2, init_mamba2_mixer, mamba1_block,
+                  mamba2_block, mamba2_mixer)
 
 #: the recurrent families: `SSMLayer` trunks (the reference's `_ssm_stack`
 #: and `_hybrid_stack`), decoded through an O(1) state
 RECURRENT = ("ssm", "hybrid")
+
+#: the families the port trains but does not decode (`check_decodes`)
+TRAIN_ONLY = ("falcon_h1",)
 
 #: the rematerialisation policies of `DenseLM.forward`'s ``remat_policy``
 REMAT_POLICIES = ("full", "dots")
@@ -193,6 +203,51 @@ class SSMLayer(nn.Module):
         return h + y
 
 
+class ParallelHybridLayer(nn.Module):
+    """One Falcon-H1 layer, as the published implementation computes it:
+    ``norm1`` (RMSNorm without bias) feeds the Mamba-2 mixer
+    (``mamba``, `ssm.mamba2_mixer`) and GQA attention (``attn``, its
+    input times ``attention_in_multiplier``) side by side; their outputs,
+    times ``ssm_out_multiplier`` and ``attention_out_multiplier``, add
+    into the residual.  Then ``norm2`` and a SwiGLU MLP (``mlp``) whose
+    gate is scaled before the SiLU and whose output after ``w_down``, by
+    ``mlp_multipliers``.  The layer names its branches to the step's
+    phase listeners as it enters them (``forward/ssm``, ``forward/attn``,
+    ``forward/mlp``), in a rematerialised layer's recompute too."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype):
+        super().__init__()
+        dev = gen.device
+        self.norm1 = _params(init_norm(cfg.d_model, dtype, False, dev))
+        self.mamba = _params(init_mamba2_mixer(
+            gen, cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim,
+            cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv, dtype))
+        self.attn = _params(init_attention(gen, cfg.d_model, cfg.n_heads,
+                                           cfg.n_kv_heads, cfg.head_dim,
+                                           dtype))
+        self.norm2 = _params(init_norm(cfg.d_model, dtype, False, dev))
+        self.mlp = _params(init_mlp(gen, cfg.d_model, cfg.d_ff, "swiglu",
+                                    dtype))
+
+    def forward(self, h, cfg: ModelConfig, positions):
+        x = norm(h, self.norm1, "rmsnorm", cfg.norm_eps)
+        enter_phase("forward/ssm")
+        m = mamba2_mixer(x, self.mamba, n_groups=cfg.ssm_groups,
+                         ssm_state=cfg.ssm_state,
+                         in_multiplier=cfg.ssm_in_multiplier,
+                         multipliers=cfg.ssm_multipliers, eps=cfg.norm_eps)
+        enter_phase("forward/attn")
+        a, _ = attention_block(x * cfg.attention_in_multiplier, self.attn,
+                               cfg, positions)
+        h = h + (m * cfg.ssm_out_multiplier
+                 + a * cfg.attention_out_multiplier)
+        enter_phase("forward/mlp")
+        u = norm(h, self.norm2, "rmsnorm", cfg.norm_eps)
+        gate, down = cfg.mlp_multipliers
+        f = F.silu((u @ self.mlp["w_gate"]) * gate) * (u @ self.mlp["w_up"])
+        return h + (f @ self.mlp["w_down"]) * down
+
+
 def encoder_config(cfg: ModelConfig) -> ModelConfig:
     """The config an encoder layer's attention runs under: the encoder's
     heads (``d_model // n_heads`` wide, no GQA) and no window, as the
@@ -262,7 +317,9 @@ class DenseLM(nn.Module):
     and the hybrid adds ``shared_attn.*``, one `DenseLayer`.  The
     encoder-decoder family's ``layers.<i>.*`` are decoder `EncDecLayer`s,
     and it adds ``enc_layers.<i>.*`` (encoder `EncDecLayer`s) and
-    ``enc_norm``."""
+    ``enc_norm``.  The falcon_h1 family's ``layers.<i>.*`` are
+    `ParallelHybridLayer`s (``norm1``, ``mamba.*``, ``attn.*``, ``norm2``,
+    ``mlp.*``)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator,
                  param_dtype=torch.float32):
@@ -283,6 +340,11 @@ class DenseLM(nn.Module):
                                         for _ in range(cfg.n_layers))
             if cfg.family == "hybrid":
                 self.shared_attn = DenseLayer(cfg, gen, param_dtype)
+            return
+        if cfg.family == "falcon_h1":
+            self.layers = nn.ModuleList(
+                ParallelHybridLayer(cfg, gen, param_dtype)
+                for _ in range(cfg.n_layers))
             return
         if cfg.family != "encdec":
             self.layers = nn.ModuleList(DenseLayer(cfg, gen, param_dtype)
@@ -322,7 +384,10 @@ class DenseLM(nn.Module):
                 routes: Optional[list] = None, remat: bool = False,
                 remat_policy: str = "full", fsdp_spec=None):
         """Returns (logits, aux_loss, new_cache), or with ``skip_head``
-        (the final hidden state (B, S, D), aux_loss, new_cache).
+        (the final hidden state (B, S, D), aux_loss, new_cache).  A
+        configuration's ``embedding_multiplier`` scales the embedded
+        rows, and its ``lm_head_multiplier`` the final hidden state (so
+        the logits; the state ``skip_head`` returns too).
 
         ``cache``: a decode cache from `init_cache` whose ``len`` already
         counts this chunk; the chunk sits at positions ``[len - S, len)``,
@@ -361,6 +426,8 @@ class DenseLM(nn.Module):
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {remat_policy!r} is not one of "
                              f"{REMAT_POLICIES}")
+        if cache is not None:
+            check_decodes(cfg)
         remat = remat and cache is None
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -385,6 +452,8 @@ class DenseLM(nn.Module):
             rows = torch.arange(B, device=h.device)[:, None]
             h = h.index_put((rows, batch["img_pos"].long()),
                             batch["img_embeds"].to(h.dtype))
+        if cfg.embedding_multiplier != 1.0:
+            h = h * cfg.embedding_multiplier
         positions = batch.get("positions")
         if positions is None:
             start = 0 if cache is None else cache["len"] - S
@@ -397,10 +466,15 @@ class DenseLM(nn.Module):
         if cfg.family in RECURRENT:
             h = self._recurrent(layers, h, positions, cache, policy)
             aux = torch.zeros((), dtype=h.dtype, device=h.device)
+        elif cfg.family == "falcon_h1":
+            h = self._parallel(layers, h, positions, policy)
+            aux = torch.zeros((), dtype=h.dtype, device=h.device)
         else:
             h, aux = self._attention(layers, batch, h, positions, cache,
                                      routes, policy)
         h = norm(between_layers(h), self.final_norm, cfg.norm, cfg.norm_eps)
+        if cfg.lm_head_multiplier != 1.0:
+            h = h * cfg.lm_head_multiplier
         if head_last_only:
             h = h[:, -1:]
         if skip_head:
@@ -485,6 +559,18 @@ class DenseLM(nn.Module):
             h = layer(h, cfg, state)
         return h
 
+    def _parallel(self, layers, h, positions, policy=None):
+        """The falcon_h1 trunk over ``layers``: `ParallelHybridLayer`s in
+        order, each a rematerialised unit with ``policy`` (None: none)."""
+        for layer in layers:
+            h = between_layers(h)
+            if policy:
+                h = remat_call(partial(layer, cfg=self.cfg,
+                                       positions=positions), policy, h)
+            else:
+                h = layer(h, self.cfg, positions)
+        return h
+
     def _recurrent_unit(self, layer, positions, shared: bool, h):
         """One training layer of the recurrent trunk (no cache): the
         shared block first when ``shared``, then ``layer``."""
@@ -529,6 +615,16 @@ def _first_routes(layer, cfg: ModelConfig, positions, routes):
     return run
 
 
+def check_decodes(cfg: ModelConfig) -> None:
+    """Raises `NotImplementedError` for a family the port trains only
+    (`TRAIN_ONLY`): its decode cache, prefill and serving step are not
+    written."""
+    if cfg.family in TRAIN_ONLY:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the {cfg.family} family is trained only; its "
+            f"decode cache, prefill and serving step are not written")
+
+
 def n_attn_apps(cfg: ModelConfig) -> int:
     """How many times the shared attention block runs (hybrid)."""
     return -(-cfg.n_layers // cfg.attn_every) if cfg.attn_every else 0
@@ -556,7 +652,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
       ``attn_v`` (A, B, S, KvH, hd), one per application of the shared
       block (`n_attn_apps`).
 
-    ``device`` None: ``cuda``, which raises without a card."""
+    ``device`` None: ``cuda``, which raises without a card.  A family
+    the port trains only raises (`check_decodes`)."""
+    check_decodes(cfg)
     dev = resolve_device(device)
     L = cfg.n_layers
 

@@ -1,6 +1,7 @@
 """State-space blocks (the twin of `repro/models/ssm.py`): Mamba-1
-(selective scan, falcon-mamba) and a simplified Mamba-2 / SSD block (the
-zamba2 trunk).  The reference is plain `jnp`: no Pallas kernel computes
+(selective scan, falcon-mamba), a simplified Mamba-2 / SSD block (the
+zamba2 trunk) and, with no twin in the reference, the published Mamba-2
+mixer of Falcon-H1 (`mamba2_mixer`, below).  The reference is plain `jnp`: no Pallas kernel computes
 any of it.  Mamba-1's training and prefill go through
 `kernels.selective_scan`: on the card a CUDA kernel that keeps the states
 in registers; on CPU tensors and DTensors its plain version
@@ -40,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ref import selective_scan_ref
-from ..kernels.selective_scan import selective_scan
+from ..kernels.selective_scan import N_STATES, selective_scan
 from .layers import _dense_init
 from .layouts import reduce_partials
 
@@ -264,3 +265,103 @@ def mamba2_block(x, p: Params, *, ssm_state: int, head_dim: int,
     y = y.reshape(B, S, di).to(x.dtype) * F.silu(z)
     out = y @ p["out_proj"]
     return out, (None if state is None else (new_conv, new_h))
+
+# ------------------------------------------- mamba 2, grouped (falcon-h1)
+
+
+def init_mamba2_mixer(gen: torch.Generator, d_model: int, n_heads: int,
+                      head_dim: int, n_groups: int, ssm_state: int,
+                      conv: int, dtype) -> Params:
+    """The weights of `mamba2_mixer`, di = ``n_heads * head_dim`` and C =
+    di + 2 G N conv channels: ``in_proj`` (D, di + C + nh) gives z (di),
+    x, B and C (the conv's channels) and dt (nh); ``conv_w`` (C, K) and
+    ``conv_b`` (C,); ``dt_bias``, ``A_log`` (log 1 .. nh, as Mamba-2
+    starts) and ``D_skip`` per head; the gated norm's ``norm_scale``
+    (di); ``out_proj`` (di, D)."""
+    di = n_heads * head_dim
+    C = di + 2 * n_groups * ssm_state
+    dev = gen.device
+    return {
+        "in_proj": _dense_init(gen, (d_model, di + C + n_heads), dtype),
+        "conv_w": _dense_init(gen, (C, conv), dtype, scale=0.5),
+        "conv_b": torch.zeros((C,), dtype=dtype, device=dev),
+        "dt_bias": torch.full((n_heads,), -4.6, dtype=dtype, device=dev),
+        "A_log": torch.from_numpy(np.log(np.arange(
+            1, n_heads + 1, dtype=np.float32))).to(dev, dtype),
+        "D_skip": torch.ones((n_heads,), dtype=dtype, device=dev),
+        "norm_scale": torch.ones((di,), dtype=dtype, device=dev),
+        "out_proj": _dense_init(gen, (di, d_model), dtype),
+    }
+
+
+def grouped_scan(x, dt, A, Bm, Cm, n_groups: int):
+    """Mamba-2's recurrence with grouped B/C, without the skip: for each
+    channel c of head h in group g, ``h_t = exp(dt_{t,h} A_h) h_{t-1} +
+    dt_{t,h} x_{t,c} B_{t,g}`` from zeros and ``y_{t,c} = sum_n C_{t,g,n}
+    h_{t,n}``.
+
+    The states are independent, so this is `selective_scan` (Mamba-1's
+    kernel) with the decay shared across a head's channels: one call per
+    group and slice of `N_STATES` states, over the group's channels,
+    with ``delta`` the head's dt on each of its channels and ``A`` the
+    head's A on each channel and state; the slices' outputs add.
+
+    x (B, S, di); dt (B, S, nh); A (nh,); Bm, Cm (B, S, G N) with N a
+    multiple of `N_STATES`.  Returns y (B, S, di)."""
+    B, S, di = x.shape
+    nh = dt.shape[-1]
+    N = Bm.shape[-1] // n_groups
+    if N % N_STATES or di % n_groups or nh % n_groups:
+        raise ValueError(f"grouped_scan: a state of {N} is not slices of "
+                         f"{N_STATES}, or {di} channels and {nh} heads do "
+                         f"not split into {n_groups} groups")
+    per, k = di // n_groups, N // N_STATES
+    delta = dt.repeat_interleave(di // nh, dim=-1)             # (B,S,di)
+    a = A.repeat_interleave(di // nh)                          # (di,)
+    # every slice's B and C made contiguous in one copy each (and their
+    # gradients stacked back in one op), where slicing each call's
+    # operands would copy, and in the backward scatter, 2 G k times
+    Bs, Cs = (t.reshape(B, S, n_groups * k, N_STATES).permute(2, 0, 1, 3)
+              .contiguous().unbind(0) for t in (Bm, Cm))
+    no_skip = x.new_zeros(per)
+    ys = []
+    for g in range(n_groups):
+        ch = slice(g * per, (g + 1) * per)
+        # one copy a group, shared by its slices' calls
+        u, d = x[..., ch].contiguous(), delta[..., ch].contiguous()
+        a_g = a[ch, None].expand(per, N_STATES).contiguous()
+        y = None
+        for j in range(g * k, (g + 1) * k):
+            y_s, _ = selective_scan(u, d, a_g, Bs[j], Cs[j], no_skip)
+            y = y_s if y is None else y + y_s
+        ys.append(y)
+    return torch.cat(ys, dim=-1)
+
+
+def mamba2_mixer(x, p: Params, *, n_groups: int, ssm_state: int,
+                 in_multiplier: float, multipliers, eps: float):
+    """Falcon-H1's Mamba-2 mixer (training, no decode state), as the
+    published implementation computes it: x (B, S, D) times
+    ``in_multiplier``, then ``in_proj``, whose z, x, B, C and dt sections
+    are scaled by ``multipliers`` (five, in that order); a causal
+    depthwise conv with bias, then SiLU, over x, B and C; ``dt =
+    softplus(dt + dt_bias)`` (unclamped); `grouped_scan`, plus
+    ``D_skip x``; the gated RMSNorm, the gate before the norm:
+    ``rmsnorm(y * silu(z))`` over each of the ``n_groups`` groups of
+    channels, times ``norm_scale``; then ``out_proj``."""
+    B, S, _ = x.shape
+    nh, di = p["dt_bias"].shape[0], p["norm_scale"].shape[0]
+    GN = n_groups * ssm_state
+    mup = torch.cat([x.new_full((n,), m) for n, m
+                     in zip((di, di, GN, GN, nh), multipliers)])
+    zxbcdt = ((x * in_multiplier) @ p["in_proj"]) * mup
+    z, xbc, dt = zxbcdt.split([di, di + 2 * GN, nh], dim=-1)
+    xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xs, Bm, Cm = F.silu(xbc).split([di, GN, GN], dim=-1)
+    dt = F.softplus(dt + p["dt_bias"])                         # (B,S,nh)
+    A = -torch.exp(p["A_log"].float())                         # (nh,)
+    y = grouped_scan(xs, dt, A, Bm, Cm, n_groups)
+    y = y + xs * p["D_skip"].repeat_interleave(di // nh)
+    y = (y * F.silu(z)).reshape(B, S, n_groups, di // n_groups)
+    y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + eps)
+    return (y.reshape(B, S, di) * p["norm_scale"]) @ p["out_proj"]

@@ -35,8 +35,9 @@ ride in the arrays):
             instant points (a=rid)
   training  train.signal / train.plan / train.refresh / train.step
             (a=step), and the device marks ``train.mark.<part>`` (a=step)
-            for each part the step names (`train.steps.enter_phase`:
-            forward, backward, update, update/adagrad, update/rows) and
+            for each part the step names (`enter_phase`: forward,
+            backward, update, update/adagrad, update/rows; a Falcon-H1
+            layer's forward/ssm, forward/attn, forward/mlp) and
             ``train.mark.end`` as the step function returns
   prefetch  the intent-lead-time pipeline stages (DESIGN.md §15):
             ``prefetch.plan`` — background plan-ahead (an instant at
@@ -79,6 +80,16 @@ import torch
 _DEFAULT_CAPACITY = 1 << 15
 #: the Chrome-trace lane of the device marks (request spans use 1..8)
 MARK_TID = 9
+
+#: callables told the name of each part of a training step as it starts
+#: (the loop's device marks, a dry run's step counter)
+PHASE_LISTENERS: list = []
+
+
+def enter_phase(name: str) -> None:
+    """Tells `PHASE_LISTENERS` that the step's part ``name`` starts."""
+    for listen in PHASE_LISTENERS:
+        listen(name)
 
 
 class _NullSpan:

@@ -62,9 +62,11 @@ The training step names its parts as it enters them, ``forward``,
 ``backward`` and ``update`` (the gradients laid out), then
 ``update/adagrad`` and, in the fused arm, ``update/rows`` (the dense and
 the row AdaGrad), to the listeners in `PHASE_LISTENERS` (a dry run's
-step counter, `launch.dryrun.StepCounter`, while it counts); with none,
-naming a part costs a loop over an empty list, five times a step at
-most.
+step counter, `launch.dryrun.StepCounter`, while it counts; both names
+live in `obs.trace`, so the model's layers can name parts too: a
+Falcon-H1 layer names ``forward/ssm``, ``forward/attn`` and
+``forward/mlp``, in the forward and again in a rematerialised layer's
+recompute); with none, naming a part costs a loop over an empty list.
 """
 
 from __future__ import annotations
@@ -84,21 +86,13 @@ from repro_torch.launch.mesh import batch_axes
 from repro_torch.launch.sharding import batch_entry
 from repro_torch.models.layouts import as_param
 from repro_torch.models.losses import vocab_parallel_ce
-from repro_torch.models.model import loss_fn
+from repro_torch.models.model import check_decodes, loss_fn
+# the listeners' list is re-exported: the loop and the dry run listen here
+from repro_torch.obs.trace import PHASE_LISTENERS, enter_phase  # noqa: F401
 from repro_torch.optim.optimizers import (adagrad_init, adagrad_update,
                                           adam_init, adam_update)
 from repro_torch.pm.collectives import resolve
 from repro_torch.pm.embedding import pm_lookup
-
-
-#: callables told the name of each part of a training step as it starts
-PHASE_LISTENERS: list = []
-
-
-def enter_phase(name: str) -> None:
-    """Tells `PHASE_LISTENERS` that the step's part ``name`` starts."""
-    for listen in PHASE_LISTENERS:
-        listen(name)
 
 
 def laid_out_grads(params) -> dict:
@@ -286,7 +280,10 @@ def make_prefill_step(cfg: ModelConfig, *, last_only: bool = False,
     """Forward-only prefill without a cache: ``prefill_step(model,
     batch)`` returns the last position's logits (B, V).  ``last_only``
     runs the head on the last position only, so the (B, S, V) logits are
-    never computed.  ``fsdp_spec``: as `make_train_step`'s."""
+    never computed.  ``fsdp_spec``: as `make_train_step`'s.  Raises for a
+    family the port trains only (`models.model.check_decodes`), as do
+    the two decoding steps below."""
+    check_decodes(cfg)
     full_fp32_matmuls()
 
     @torch.no_grad()
@@ -322,6 +319,7 @@ def make_prefill_decode_step(cfg: ModelConfig, *, fsdp_spec=None
     layer appends its `moe.Routing`.  The encoder-decoder family reads
     ``cache["enc_out"]``, which the caller fills first
     (`DenseLM.encode`).  ``fsdp_spec``: as `make_train_step`'s."""
+    check_decodes(cfg)
     full_fp32_matmuls()
 
     @torch.no_grad()
@@ -341,6 +339,7 @@ def make_serve_step(cfg: ModelConfig, *, fsdp_spec=None) -> Callable:
     routes=None) -> (logits (B, V), new cache)``, one token per sequence
     against the cache.  Advances ``cache["len"]`` itself (the new token
     occupies position len).  ``fsdp_spec``: as `make_train_step`'s."""
+    check_decodes(cfg)
     full_fp32_matmuls()
 
     @torch.no_grad()

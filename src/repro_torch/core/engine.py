@@ -8,8 +8,9 @@ route their placement decisions through it:
     machine below — intent tables, per-key management state (owned /
     replicated / relocating), the owner-side decision rule (§4.1) and
     Algorithm 1 action timing;
-  * the SPMD planner (`pm.planner.IntentPlanner`) calls the vectorized
-    window classifiers (`concurrent_intent`, `intent_miss_bound`) that
+  * the SPMD planner (`pm.planner.IntentPlanner`) builds its plans on the
+    one-sort window pass (`IntentWindow`) under the vectorized window
+    classifiers (`concurrent_intent`, `intent_miss_bound`), which
     implement the same §4.1 rule over a planning window: concurrent intent
     on >= 2 nodes -> replicate, single-node intent -> owner path.
 
@@ -384,6 +385,144 @@ def decide_on_activate(active_after: np.ndarray, holder_mask: np.ndarray,
     return reloc, repl
 
 
+def _run_starts(x: np.ndarray) -> np.ndarray:
+    """Where each run of equal values in ``x`` starts."""
+    new = np.empty(len(x), bool)
+    new[:1] = True
+    np.not_equal(x[1:], x[:-1], out=new[1:])
+    return np.flatnonzero(new)
+
+
+def _run_lengths(starts: np.ndarray, n: int) -> np.ndarray:
+    """The lengths of the runs that start at ``starts`` in ``n`` items."""
+    out = np.empty(len(starts), np.int64)
+    np.subtract(starts[1:], starts[:-1], out=out[:-1])
+    out[-1:] = n - starts[-1:]
+    return out
+
+
+def largest_group(group: np.ndarray, span: int,
+                  where: Optional[np.ndarray] = None) -> int:
+    """The size of the largest class of equal values in ``group`` (intp,
+    in ``[0, span)``), counting only where ``where`` holds if it is given:
+    tallied in a table of ``span`` bins where that is no larger than twice
+    the group (a window's clocks are dense), else by a sort (clocks far
+    apart)."""
+    if span > 2 * len(group):
+        group = group if where is None else group[where]
+        return int(np.unique(group, return_counts=True)[1].max()) \
+            if len(group) else 0
+    return int(np.bincount(group, weights=where).max()) if len(group) else 0
+
+
+class IntentWindow:
+    """A planning window's intent signals in (key, clock, node) order, put
+    there by one sort: the shared pass under `concurrent_intent`,
+    `intent_miss_bound` and the planner's plans.
+
+    Signal i says ``nodes[i]`` accesses ``keys[i]`` at clock ``clocks[i]``.
+    Each signal is packed into one integer code, key, clock and node in
+    bit fields as wide as their spans over the window (offsets from the
+    least of each; columns too wide for 62 bits in all are packed as their
+    dense ranks), and the codes go through numpy's unstable sort.
+    Everything else is read from runs of equal fields in that order: the
+    distinct triples, the distinct (key, clock) pairs with their
+    distinct-node counts, the keys (``uniq``, ascending), and from those
+    the §4.1 classification — per clock tick, a key with intent from >= 2
+    nodes is *concurrent* (``weight`` sums its node counts over the
+    ticks), a key with intent from one node counts one ``single`` for that
+    tick.  A key set's residency is then a boolean over ``uniq``
+    (``cached``), and every miss count is a tally over the same runs."""
+
+    __slots__ = ("n", "uniq", "weight", "single", "signals_per_key",
+                 "pair_kidx", "pair_clock", "clock_bits", "code", "low_bits")
+
+    def __init__(self, keys: np.ndarray, nodes: np.ndarray,
+                 clocks: np.ndarray):
+        keys = np.asarray(keys, np.int64)
+        nodes = np.asarray(nodes, np.int64)
+        clocks = np.asarray(clocks, np.int64)
+        self.n = n = len(keys)
+        z = np.zeros(0, np.int64)
+        if n == 0:
+            self.uniq = self.weight = self.single = z
+            self.signals_per_key = self.pair_kidx = self.pair_clock = z
+            self.code, self.clock_bits, self.low_bits = z, 0, 0
+            return
+        k0, c0, n0 = int(keys.min()), int(clocks.min()), int(nodes.min())
+        kb = (int(keys.max()) - k0).bit_length()
+        cb = (int(clocks.max()) - c0).bit_length()
+        nb = (int(nodes.max()) - n0).bit_length()
+        ranked = None
+        if kb + cb + nb > 62:
+            # too wide to pack side by side: pack each column's dense rank
+            # (the same order; keys map back through ``ranked``)
+            ranked, keys = np.unique(keys, return_inverse=True)
+            clocks = np.unique(clocks, return_inverse=True)[1]
+            nodes = np.unique(nodes, return_inverse=True)[1]
+            k0 = c0 = n0 = 0
+            kb, cb, nb = (int(x.max()).bit_length()
+                          for x in (keys, clocks, nodes))
+            if kb + cb + nb > 62:
+                raise OverflowError(
+                    f"intent window too wide to pack: {kb} + {cb} + {nb} "
+                    f"bits of distinct keys, clocks and nodes")
+        self.clock_bits, self.low_bits = cb, cb + nb
+        code = keys - k0
+        code <<= cb
+        code += clocks
+        code -= c0
+        code <<= nb
+        code += nodes
+        code -= n0
+        if kb + cb + nb <= 31:                  # half the bytes to sort
+            code = code.astype(np.int32)
+        code.sort()
+        self.code = code
+        trip_starts = _run_starts(code)         # distinct (key, clock, node)
+        pairs = code[trip_starts]
+        pairs >>= nb
+        starts = _run_starts(pairs)             # distinct (key, clock)
+        counts = _run_lengths(starts, len(pairs))   # its distinct nodes
+        pairs = pairs[starts]
+        self.pair_clock = np.bitwise_and(pairs, (1 << cb) - 1,
+                                         dtype=np.int64)
+        pairs >>= cb                            # the pair's key
+        key_starts = _run_starts(pairs)
+        kidx = np.zeros(len(pairs), np.int64)
+        kidx[key_starts[1:]] = 1
+        self.pair_kidx = np.cumsum(kidx, out=kidx)
+        uniq = pairs[key_starts].astype(np.int64)
+        uniq += k0
+        self.uniq = uniq if ranked is None else ranked[uniq]
+        # a key's first signal: its first pair's first triple's first one
+        self.signals_per_key = _run_lengths(
+            trip_starts[starts[key_starts]], n)
+        U = len(key_starts)
+        multi = np.flatnonzero(counts >= 2)
+        multi_kidx = kidx[multi]
+        self.weight = np.bincount(multi_kidx, weights=counts[multi],
+                                  minlength=U).astype(np.int64)
+        self.single = _run_lengths(key_starts, len(pairs))
+        self.single -= np.bincount(multi_kidx, minlength=U)
+
+    def missed(self, cached: np.ndarray) -> int:
+        """Signals whose key is not ``cached`` (a boolean over
+        ``uniq``)."""
+        return self.n - int(self.signals_per_key @ cached)
+
+    def miss_bound(self, cached: np.ndarray, *, per_node: bool) -> int:
+        """`intent_miss_bound` with residency given as a boolean over
+        ``uniq``."""
+        if per_node:
+            low = np.bitwise_and(self.code, (1 << self.low_bits) - 1,
+                                 dtype=np.int64)
+            return largest_group(low, 1 << self.low_bits,
+                                 np.repeat(~cached, self.signals_per_key))
+        return largest_group(self.pair_clock, 1 << self.clock_bits,
+                             ~cached[self.pair_kidx])
+
+
 def concurrent_intent(keys: np.ndarray, nodes: np.ndarray,
                       clocks: np.ndarray
                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -392,25 +531,8 @@ def concurrent_intent(keys: np.ndarray, nodes: np.ndarray,
     intent from >= 2 nodes is *concurrent* (-> replicate, weighted by the
     node count, summed over ticks); single-node keys stay on the owner path
     (§4.1).  Returns (uniq_keys, replicate_weight, single_count)."""
-    keys = np.asarray(keys, np.int64)
-    nodes = np.asarray(nodes, np.int64)
-    clocks = np.asarray(clocks, np.int64)
-    uniq = np.unique(keys)
-    if len(keys) == 0:
-        z = np.zeros(0, np.int64)
-        return uniq, z, z
-    kidx = np.searchsorted(uniq, keys)
-    # dedupe (clock, key, node), then count nodes per (clock, key)
-    trip = (clocks * len(uniq) + kidx) * np.int64(nodes.max() + 1) + nodes
-    _, first = np.unique(trip, return_index=True)
-    pair = clocks[first] * len(uniq) + kidx[first]
-    pairs, counts = np.unique(pair, return_counts=True)
-    pair_key = (pairs % len(uniq)).astype(np.int64)
-    multi = counts >= 2
-    weight = np.bincount(pair_key[multi], weights=counts[multi],
-                         minlength=len(uniq)).astype(np.int64)
-    single = np.bincount(pair_key[~multi], minlength=len(uniq))
-    return uniq, weight, single.astype(np.int64)
+    win = IntentWindow(keys, nodes, clocks)
+    return win.uniq, win.weight, win.single
 
 
 def intent_miss_bound(keys: np.ndarray, nodes: np.ndarray,
@@ -425,24 +547,8 @@ def intent_miss_bound(keys: np.ndarray, nodes: np.ndarray,
     deduplicates misses over the whole step's batch (the SPMD managed
     embedding compacts one buffer per step, so a key missed by several
     shards occupies one slot)."""
-    keys = np.asarray(keys, np.int64)
-    if len(keys) == 0:
-        return 0
-    miss = ~np.isin(keys, cached)
-    if not np.any(miss):
-        return 0
-    clocks = np.asarray(clocks, np.int64)
-    if per_node:
-        group = clocks * (np.int64(np.max(nodes)) + 1) \
-            + np.asarray(nodes, np.int64)
-        _, cnt = np.unique(group[miss], return_counts=True)
-        return int(cnt.max())
-    # unique (clock, key) pairs, then the worst per-clock unique count
-    pair = clocks[miss] * (np.int64(np.max(keys)) + 1) + keys[miss]
-    uniq_pair = np.unique(pair)
-    _, cnt = np.unique(uniq_pair // (np.int64(np.max(keys)) + 1),
-                       return_counts=True)
-    return int(cnt.max())
+    win = IntentWindow(keys, nodes, clocks)
+    return win.miss_bound(np.isin(win.uniq, cached), per_node=per_node)
 
 
 class IntentEngine:

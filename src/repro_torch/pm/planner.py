@@ -10,7 +10,8 @@ policies use:
   * rows with active intent on >= 2 shards in the planning window are
     *replicated* -> placed in the device replica cache (AdaPM §4.1:
     concurrent intent -> selective replication), weighted by the summed
-    shard count (`engine.concurrent_intent`);
+    shard count (`engine.concurrent_intent`, read off the window's one
+    sort, `engine.IntentWindow`);
   * rows with single-shard intent stay owner-sharded (the relocation arm
     degenerates under SPMD: ownership is affine in the row id, so
     "relocate" means "serve via the compact miss path", which moves the
@@ -32,7 +33,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.core.engine import concurrent_intent, intent_miss_bound
+from repro_torch.core.engine import IntentWindow, largest_group
 from repro_torch.core.timing import ActionTimer
 from repro_torch.obs.telemetry import Telemetry
 
@@ -56,6 +57,8 @@ class PlacementPlan:
     #   0 under this plan's ranking): the intent-derived signal the
     #   zero-tuning controller steers replica-cache capacity by
     #   (`pm.controller.OnlineController.steer_capacity`, DESIGN.md §13)
+    signals: int = 0             # intent signals the plan classified (the
+    #   ``plan.signals`` gauge: a trace reads the solve's time per signal)
 
 
 def _bucket(n: int, floor: int = 64) -> int:
@@ -203,19 +206,23 @@ class IntentPlanner:
         becomes the active plan only through `adopt`, which stamps the
         next version and publishes, ON the caller's thread."""
         # §4.1 via the engine: concurrent intent -> replicate (weighted),
-        # single-node intent -> owner path
-        uniq, weight, single = concurrent_intent(keys, nodes, steps)
+        # single-node intent -> owner path; one sort of the signals
+        # (`IntentWindow`) serves the ranking and every miss count below
+        win = IntentWindow(keys, nodes, steps)
+        weight, single = win.weight, win.single
         if cache_singles:
             score = weight * (np.int64(np.max(single) + 1)
                               if len(single) else 1) + single
         else:
             score = weight
-        multi = uniq[score > 0]
-        order = np.argsort(-score[score > 0], kind="stable")
-        hot = multi[order][: self.C].astype(np.int64)
+        top = np.flatnonzero(score > 0)
+        demand = len(top)
+        if demand > self.C:
+            top = self._top(score, top)
+        cached = np.zeros(len(win.uniq), bool)
+        cached[top] = True
         cache_ids = np.full((self.C,), self.V, dtype=np.int32)
-        if len(hot):
-            cache_ids[: len(hot)] = hot.astype(np.int32)
+        cache_ids[: len(top)] = win.uniq[top].astype(np.int32)
         cache_ids = np.sort(cache_ids)
 
         # exact per-step miss counts over the window -> capacity
@@ -224,18 +231,18 @@ class IntentPlanner:
         # per_node=True: per-shard capacity for the mesh backend — the
         # loader signals unique ids per shard, so per-(step, shard)
         # counts are per-shard unique counts)
-        worst_miss = max(1, intent_miss_bound(
-            keys, nodes, steps, hot, per_node=self.per_node_bound))
-        miss_rate = (float(np.mean(~np.isin(keys, hot)))
-                     if len(keys) else 0.0)
+        worst_miss = max(1, win.miss_bound(cached,
+                                           per_node=self.per_node_bound))
         plan = PlacementPlan(
             version=self._version + 1,
             cache_ids=cache_ids,
             miss_capacity=_bucket(worst_miss),
             window=window,
-            predicted_miss_rate=miss_rate,
-            route_capacity=self._route_capacity(keys, steps, hot),
-            demand=int(np.count_nonzero(score > 0)),
+            predicted_miss_rate=(win.missed(cached) / win.n
+                                 if win.n else 0.0),
+            route_capacity=self._route_capacity(win, cached),
+            demand=demand,
+            signals=win.n,
         )
         return self._commit(plan) if commit else plan
 
@@ -251,6 +258,7 @@ class IntentPlanner:
                                plan.predicted_miss_rate)
             self.telemetry.set("plan.miss_capacity", plan.miss_capacity)
             self.telemetry.set("plan.demand", plan.demand)
+            self.telemetry.set("plan.signals", plan.signals)
             self.telemetry.event("plan.built", version=plan.version,
                                  window=list(plan.window),
                                  predicted=plan.predicted_miss_rate,
@@ -258,8 +266,27 @@ class IntentPlanner:
                                  demand=plan.demand)
         return plan
 
-    def _route_capacity(self, keys: np.ndarray, steps: np.ndarray,
-                        hot: np.ndarray) -> int:
+    def _top(self, score: np.ndarray, cands: np.ndarray) -> np.ndarray:
+        """The ``C`` best of ``cands`` (indices into ``score``, ascending)
+        in the order a stable descending sort of ``score`` would rank
+        them: score first, ties to the smaller index — one
+        ``(max - score) * U + index`` int64 per candidate, partitioned at
+        the C-th place.  Unordered; a score range too wide for the
+        packing takes the stable sort itself."""
+        U = len(score)
+        top = int(score[cands].max())
+        if top * U < 1 << 62:
+            rank = score[cands]
+            np.subtract(top, rank, out=rank)
+            rank *= U
+            rank += cands
+            rank.partition(self.C - 1)
+            return rank[: self.C] % U
+        order = np.argsort(-score[cands], kind="stable")
+        return cands[order[: self.C]]
+
+    def _route_capacity(self, win: IntentWindow,
+                        cached: np.ndarray) -> int:
         """Exact per-owner-shard unique-miss bound over the window: the
         worst, over (step, owner) pairs, count of distinct missed ids the
         owner must serve in one step — the routed gather's per-destination
@@ -268,19 +295,13 @@ class IntentPlanner:
         global capacity at the use site."""
         if self.owner_shards <= 0:
             return 0
-        if len(keys) == 0:
-            return _bucket(1, floor=16)
-        miss = ~np.isin(keys, hot)
-        if not np.any(miss):
-            return _bucket(1, floor=16)
         block = -(-self.V // self.owner_shards)
-        # distinct (step, key) pairs, then count per (step, owner)
-        pair = np.unique(steps[miss].astype(np.int64) * np.int64(self.V)
-                         + keys[miss].astype(np.int64))
-        grp = (pair // np.int64(self.V)) * np.int64(self.owner_shards) \
-            + (pair % np.int64(self.V)) // block
-        _, cnt = np.unique(grp, return_counts=True)
-        return _bucket(int(cnt.max()), floor=16)
+        # distinct missed (step, key) pairs, counted per (step, owner)
+        group = win.uniq[win.pair_kidx] // block
+        group += win.pair_clock * self.owner_shards
+        worst = largest_group(group, self.owner_shards << win.clock_bits,
+                              ~cached[win.pair_kidx])
+        return _bucket(max(1, worst), floor=16)
 
     def plan_window(self, current_step: int) -> tuple:
         """The window `plan(current_step)` would cover right now: one

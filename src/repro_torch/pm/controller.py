@@ -3,8 +3,8 @@
 The paper's contract is that the *task* signals (easy) while the
 *manager* adapts (hard, automatic) — yet a runtime with fixed knobs
 exposes hand-set constants: replica-cache capacity, replan/refresh
-cadence, serve micro-batch size, double-buffered admission on/off.  This
-module closes the loop, extending the measured block autotuner's
+cadence, serve micro-batch size, pipeline depth.  This module closes
+the loop, extending the measured block autotuner's
 pattern (probe, cache per bucket, never re-measure a shape) from kernel
 tiles to runtime parameters.  Two mechanisms, by information source:
 
@@ -13,14 +13,13 @@ tiles to runtime parameters.  Two mechanisms, by information source:
                  horizon's cache-worthy demand (`steer_capacity` — grow
                  immediately on the hard signal, shrink only after the
                  demand stays low for ``shrink_patience`` consecutive
-                 replans), and double-buffered admission turns on exactly
-                 when the measured admission/execute overlap ratio pays
-                 (`overlap_pays`).  This is "Towards Self-Tuning Parameter
+                 replans).  This is "Towards Self-Tuning Parameter
                  Servers"'s observation specialized by exact intent: when
                  the workload is known in advance, the right capacity is
                  arithmetic, and measurement is only a refinement.
   hill-climb     knobs whose effect is a wall-clock property of THIS host
-                 (replan cadence, micro-batch size, refresh cadence) are
+                 (replan and refresh cadence, micro-batch size, pipeline
+                 depth) are
                  searched online: epsilon-greedy coordinate hill-climb
                  over small bucketed ladders (MLtuner's trial-and-revert,
                  one knob in flight at a time so reward attribution stays
@@ -32,7 +31,7 @@ tiles to runtime parameters.  Two mechanisms, by information source:
 
 Every knob value lives on a bucketed ladder (powers of two for capacity),
 so buffers keep a handful of shapes and revisiting a bucket reuses
-them — the discipline of `serve.runtime._managed_fn(route_cap)`.
+the caching allocator's blocks of that size.
 
 Decisions and their causes are published to the telemetry bus
 (``ctl.*`` events), so benches and tests can assert on *why* a knob
@@ -83,15 +82,6 @@ def capacity_ladder(vocab: int, floor: int = 64,
     vocabulary stops being *selective* replication and the refresh gather
     starts to dominate the replan."""
     return pow2_ladder(floor, max(floor, vocab // max_frac))
-
-
-def overlap_pays(ratio: Optional[float],
-                 threshold: float = 1.15) -> bool:
-    """Auto-enable rule for double-buffered admission: the one-slot
-    pipeline is worth its extra in-flight state only when the measured
-    admission/execute overlap ratio beats ``threshold`` (1.0 = one side
-    completely dominates, 2.0 = perfectly balanced halves)."""
-    return ratio is not None and ratio >= threshold
 
 
 @dataclass

@@ -37,14 +37,8 @@ controller (`pm.controller.OnlineController`) instead of an operator:
                    no batch ever sees a mixed capacity (tested
                    byte-identical across resize boundaries).
   replan_every /   epsilon-greedy hill-climb on measured epoch throughput
-  batch_requests   (requests/s between replan boundaries), one knob in
-                   flight at a time.
-  double_buffer    auto-enabled when the measured admission/execute
-                   overlap ratio pays (`controller.overlap_pays`); the
-                   calibration that used to print one ad-hoc line at
-                   startup now records ``serve.overlap_*`` telemetry
-                   gauges benches and tests assert on, and the single
-                   human-readable line moved to the shutdown summary.
+  batch_requests / (requests/s between replan boundaries), one knob in
+  pipeline_depth   flight at a time; the depth starts at 1.
 
 Every adaptation signal the runtime acts on — miss rate, overflow and
 requeue counts, replan causes, capacity resizes, per-round latency — is
@@ -54,7 +48,7 @@ the controller all read the same source of truth.
 
 Because the whole index stage runs on the host at admission
 (`probe_host`), every drift signal is known *before* the batch executes —
-which is what makes the admission loop double-bufferable: the runtime
+which is what makes the admission loop pipelineable: the runtime
 dispatches batch t to the device and, while it executes, enqueues /
 replans / probes batch t+1 on the host; batch t is only blocked one
 round later — on one CUDA event per batch, the only place the host waits
@@ -92,8 +86,7 @@ from repro_torch.obs.trace import SpanTracer, make_tracer
 from repro_torch.pm.collectives import make_backend, resolve, route_block
 from repro_torch.pm.controller import (AUTO, Knob, OnlineController,
                                        capacity_ladder, is_auto,
-                                       overlap_pays, pow2_ladder,
-                                       resolve_knob)
+                                       pow2_ladder, resolve_knob)
 from repro_torch.pm.embedding import (CacheProbeView, plain_serve_lookup,
                                       planned_serve_lookup, probe_host)
 from repro_torch.pm.planner import IntentPlanner, PlacementPlan
@@ -119,12 +112,6 @@ class ServeConfig:
     kernel: bool = True          # the lookup's row copies run in the
     #   hand-written CUDA kernels (plain versions on CPU tensors); False
     #   runs the plain PyTorch versions on every device
-    double_buffer: Union[bool, str] = AUTO  # back-compat alias for the
-    #   one-slot pipeline: explicit True/False pins ``pipeline_depth`` to
-    #   1/0 when that field is left "auto"; with both "auto" the depth
-    #   defaults below.  Reads of `runtime.double_buffer` stay valid
-    #   (derived: pipeline_depth >= 1); semantics are identical at every
-    #   depth (tested).
     pipeline_depth: Union[int, str] = AUTO  # N-deep admission->probe->
     #   prefetch->dispatch pipeline (DESIGN.md §15): up to N batches stay
     #   dispatched-but-unblocked while the host stages the next rounds,
@@ -132,8 +119,7 @@ class ServeConfig:
     #   into a staging buffer so steady-state batches pay only the
     #   residual collective gather.  0 = the fully synchronous loop.
     #   "auto" (default): starts at 1 (the staging prefetch is pure
-    #   work elimination); the controller hill-climbs the depth and the
-    #   overlap calibration force-raises it where measured overlap pays.
+    #   work elimination) and the controller hill-climbs the depth.
     replan_every: Union[int, str] = AUTO  # cadence floor (rounds between
     #   replans); "auto": hill-climbed.  0 = feedback-only mode: replan
     #   solely on drift signals (overflow / miss-rate), never on cadence
@@ -192,7 +178,7 @@ class ServeResult:
 
 @dataclass
 class _InFlight:
-    """A dispatched-but-not-yet-blocked batch (double-buffered admission):
+    """A dispatched-but-not-yet-blocked batch (pipelined admission):
     everything bookkeeping needs was decided at dispatch time from the
     host-side probe — blocking only realizes the rows and the clock."""
 
@@ -243,7 +229,7 @@ class ServingRuntime:
             ("replan_every", cfg.replan_every),
             ("refresh_every", cfg.refresh_every),
             ("batch_requests", cfg.batch_requests),
-            ("double_buffer", cfg.double_buffer)) if is_auto(v)}
+            ("pipeline_depth", cfg.pipeline_depth)) if is_auto(v)}
         cap_ladder = capacity_ladder(cfg.vocab)
         self.cache_capacity = int(resolve_knob(cfg.cache_capacity,
                                                cap_ladder[0]))
@@ -251,18 +237,9 @@ class ServingRuntime:
         # a read-only serving table never needs refreshes between replans
         self.refresh_every = int(resolve_knob(cfg.refresh_every, 0))
         self.batch_requests = int(resolve_knob(cfg.batch_requests, 16))
-        # pipeline depth precedence: an explicit depth wins; else an
-        # explicit legacy double_buffer maps to 1/0; else auto (depth 1 —
-        # the staging prefetch is work elimination, on by default)
-        if not is_auto(cfg.pipeline_depth):
-            self.pipeline_depth = int(cfg.pipeline_depth)
-        elif not is_auto(cfg.double_buffer):
-            self.pipeline_depth = 1 if cfg.double_buffer else 0
-        else:
-            self.pipeline_depth = 1
-            self._auto.add("pipeline_depth")
+        self.pipeline_depth = int(resolve_knob(cfg.pipeline_depth, 1))
         self._ctl: Optional[OnlineController] = None
-        if cfg.managed and self._auto - {"refresh_every", "double_buffer"}:
+        if cfg.managed and self._auto - {"refresh_every"}:
             knobs = []
             if "cache_capacity" in self._auto:
                 # intent-steered, not hill-climbed (adapt=False): the
@@ -282,8 +259,7 @@ class ServingRuntime:
             if "pipeline_depth" in self._auto:
                 # the lookup is exact at every depth (the pipeline only
                 # moves blocking and staging traffic), so the hill-climb
-                # probes freely; `_calibrate_overlap` force-raises it
-                # through the same controller when measured overlap pays
+                # probes freely
                 ladder = (0, 1, 2, 4)
                 knobs.append(Knob("pipeline_depth", ladder,
                                   index=ladder.index(self.pipeline_depth),
@@ -345,36 +321,11 @@ class ServingRuntime:
         # runtime (resize segments, drain calls) and the planner's rate
         # estimator requires a monotone clock across those calls
         self._lifetime_rounds = 0
-        self._plain_fn = lambda t, toks: plain_serve_lookup(
-            t, toks, n_shards=cfg.n_shards, backend=self.backend)
-        # one data-path callable per route-capacity bucket (the mesh
-        # backend's routed block size; always 0 on the emulated backend)
-        self._managed_fns: Dict[int, callable] = {}
-        self.overlap_ratio: Optional[float] = None
-        self._calibrated = False
+        self._warmed = False
         self._summary_printed = False
         # controller reward epochs: measured between replan boundaries
         self._epoch_t0: Optional[float] = None
         self._epoch_served0 = 0
-
-    def _managed_fn(self, route_cap: int = 0):
-        """Serving data path for one routed block bound (the plan's
-        `route_capacity`; 0 on the emulated backend, which routes
-        nothing).  The callable takes the host probe's unique-miss count
-        ``nm`` and the ids it routes (``ids``, host) as its last
-        arguments: on the mesh they decide the batch's routed block."""
-        cfg = self.cfg
-        fn = self._managed_fns.get(route_cap)
-        if fn is None:
-            def fn(t, cr, bi, h, cs, bs, nm=None, ids=None):
-                cap = self._route_block(ids, bi.shape[0], route_cap) \
-                    if nm is not None else 0
-                return planned_serve_lookup(
-                    t, cr, bi, h, cs, bs, n_shards=cfg.n_shards,
-                    kernel=cfg.kernel, backend=self.backend, n_miss=nm,
-                    route_cap=cap)
-            self._managed_fns[route_cap] = fn
-        return fn
 
     def _route_block(self, ids: np.ndarray, m: int,
                      route_cap: int = 0) -> int:
@@ -400,10 +351,6 @@ class ServingRuntime:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, non_blocking=True)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def _mark_done(self) -> Optional[torch.cuda.Event]:
         """An event after the work queued so far on the current stream
         (None on the CPU)."""
@@ -413,18 +360,6 @@ class ServingRuntime:
         ev.record(torch.cuda.current_stream(self.device))
         return ev
 
-    @property
-    def double_buffer(self) -> bool:
-        """Back-compat view of the pipeline: any depth >= 1 overlaps
-        admission with execution (the old one-slot semantics)."""
-        return self.pipeline_depth >= 1
-
-    def _overlap_backend_ok(self) -> bool:
-        """Overlap only buys parallelism when execution is genuinely
-        off-host: on the CPU the "device" IS the host cores, so deeper
-        pipelining adds contention."""
-        return self.device.type == "cuda"
-
     # ----------------------------------------------------------- control
     def current_knobs(self) -> Dict[str, object]:
         """The live knob values (auto knobs: wherever the controller has
@@ -433,87 +368,40 @@ class ServingRuntime:
                 "replan_every": self.replan_every,
                 "refresh_every": self.refresh_every,
                 "batch_requests": self.batch_requests,
-                "double_buffer": self.double_buffer,
                 "pipeline_depth": self.pipeline_depth}
 
-    def _calibrate_overlap(self) -> None:
-        """One-shot overlap calibration for double-buffered admission:
-        time one representative host-side admission probe against one
-        device dispatch on this host and record the wall-clock ratio the
-        one-slot pipeline could buy — ``(host + device) / max(host,
-        device)``, ~2x when the two sides are balanced, ~1x when either
-        dominates.  The measurement lands on the telemetry bus
-        (``serve.overlap_ratio`` / ``serve.overlap_host_ms`` /
-        ``serve.overlap_device_ms``) so benches and tests can assert on
-        it; with ``double_buffer="auto"`` the controller enables the
-        pipeline iff the ratio pays.  No startup print — the one
-        human-readable line is the shutdown `summary`.  A failed kernel
-        build or launch raises here: nothing is caught."""
-        self._calibrated = True
+    def _warm_up(self) -> None:
+        """One untimed dispatch of the managed lookup at the floor shapes
+        (a cache of the first ids, a miss buffer of the planner ladder's
+        floor bucket), so the kernel library's load and first launch
+        fall in set-up, before the stream's first arrivals.  Every rank
+        of a mesh makes the same calls.  A failed kernel build or launch
+        raises here: nothing is caught."""
         cfg = self.cfg
         T = self.batch_requests * cfg.keys_per_request
-        rng = np.random.default_rng(0)
-        tok = rng.integers(0, cfg.vocab, size=T).astype(np.int32)
+        tok = np.random.default_rng(0).integers(
+            0, cfg.vocab, size=T).astype(np.int32)
         cache_ids = np.arange(min(self.cache_capacity, cfg.vocab),
                               dtype=np.int32)
-        M = max(1, min(64, T))   # the planner ladder's floor bucket
         cache_rows = self._refresh_rows(self._to_dev(cache_ids), cache_ids)
-
-        def host():
-            return probe_host(cache_ids, tok, M)
-
-        def device(p):
-            idx = self._to_dev(np.stack([p.hit.astype(np.int32),
-                                         p.cache_slot, p.buf_slot]))
-            self._managed_fn()(self.table, cache_rows,
-                               self._to_dev(p.buf_ids), idx[0], idx[1],
-                               idx[2])
-            self._sync()
-
-        p = host()
-        device(p)                # warmup (and the kernels' first build)
-
-        def timed(fn, *a):       # min-of-3: the noise-robust timer
-            best = float("inf")
-            for _ in range(3):
-                t0 = time.perf_counter()
-                fn(*a)
-                best = min(best, time.perf_counter() - t0)
-            return best
-
-        th = timed(host)
-        td = timed(device, p)
-        # one clock for all ranks of a mesh: the same pipeline depth
-        self.overlap_ratio = resolve(self.backend).agree(
-            (th + td) / max(th, td, 1e-9))
-        self.telemetry.set("serve.overlap_ratio", self.overlap_ratio)
-        self.telemetry.set("serve.overlap_host_ms", th * 1e3)
-        self.telemetry.set("serve.overlap_device_ms", td * 1e3)
-        # the measured-overlap force goes through the controller's
-        # `force_at_least` — the ONE ctl.force emitter, so every
-        # forced move carries the same event schema (knob/value/
-        # cause/target) and `obs/report.py`'s knob timeline renders
-        # it alongside the demand-steered forces
-        if "pipeline_depth" in self._auto and self._ctl is not None \
-                and self._overlap_backend_ok() \
-                and overlap_pays(self.overlap_ratio):
-            v = self._ctl.force_at_least("pipeline_depth", 2,
-                                         cause="overlap")
-            if v is not None:
-                self.pipeline_depth = int(v)
+        p = probe_host(cache_ids, tok, max(1, min(64, T)))
+        idx = self._to_dev(np.stack([p.hit.astype(np.int32), p.cache_slot,
+                                     p.buf_slot]))
+        planned_serve_lookup(self.table, cache_rows, self._to_dev(p.buf_ids),
+                             idx[0], idx[1], idx[2], n_shards=cfg.n_shards,
+                             kernel=cfg.kernel, backend=self.backend)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._warmed = True
 
     def summary(self) -> str:
-        """The single human-readable shutdown line (replaces the old
-        startup calibration print): final knob values, which of them the
-        controller owned, and the headline telemetry."""
+        """The single human-readable shutdown line: final knob values,
+        which of them the controller owned, and the headline telemetry."""
         t = self.telemetry
         knobs = " ".join(f"{k}={v}" for k, v in
                          self.current_knobs().items())
         auto = ",".join(sorted(self._auto)) or "none"
-        ratio = f"{self.overlap_ratio:.2f}x" \
-            if self.overlap_ratio is not None else "n/a"
         return (f"[serve] shutdown: {knobs} auto=({auto}) "
-                f"overlap~{ratio} "
                 f"replans={int(t.counter_value('serve.replans'))} "
                 f"resizes={int(t.counter_value('serve.capacity_resizes'))} "
                 f"overflows={int(t.counter_value('serve.overflow_batches'))}"
@@ -585,8 +473,6 @@ class ServingRuntime:
             self.telemetry.set("serve.replan_every", v)
         elif name == "batch_requests":
             self._set_batch_requests(int(v))
-        elif name == "refresh_every":
-            self.refresh_every = int(v)
         elif name == "pipeline_depth":
             self.pipeline_depth = int(v)
             self.telemetry.set("serve.pipeline_depth", v)
@@ -781,31 +667,37 @@ class ServingRuntime:
         self.telemetry.inc("serve.stage_topups")
         self.telemetry.inc("serve.stage_topup_rows", int(new_ids.size))
 
-    def _split_staged(self, probe):
-        """The staging split of a probed batch: ``(res_ids, staged_tok,
-        ext_lut, res_lut, n_res)``, or None without a staging buffer.
+    def _lookup_operands(self, probe):
+        """The managed lookup's operands for a probed batch: ``(cache_rows,
+        buf_ids, rows, n_miss, ids)`` — the cache side, the host miss
+        buffer, the three (T,) index rows (hit, cache slot, buffer slot),
+        the unique-miss count and the host ids the buffer routes.
 
-        Folds the staging buffer into the cache side: staged miss tokens
-        become extended-cache hits (slot C+pos into the per-tenure
-        ``cache_rows ++ staging_rows`` concat) and only the residual
-        bucket rides the collective — the device path is then the PLAIN
-        managed lookup over a smaller miss buffer, with no extra gathers
-        or masks per round.  All host-side numpy on the compact (M,)
-        slots plus three (T,) LUT reads; the round's bookkeeping (miss
-        rate, overflow, zero-served) stays on the raw probe, so semantics
-        are bitwise the sequential loop's (tested).  Either way the
-        batch's residual misses accrue (`_note_residual`)."""
-        if self.pipeline_depth < 1:
-            return None
+        With a staging buffer (``pipeline_depth >= 1``) the split folds it
+        into the cache side: staged miss tokens become extended-cache
+        hits (slot C+pos into the per-tenure ``cache_rows ++
+        staging_rows`` concat) and only the residual bucket rides the
+        collective — the device path is the same managed lookup over a
+        smaller miss buffer, with no extra gathers or masks per round.
+        All host-side numpy on the compact (M,) slots plus three (T,) LUT
+        reads; the round's bookkeeping (miss rate, overflow, zero-served)
+        stays on the raw probe, so semantics are bitwise the sequential
+        loop's (tested).  Either way the batch's residual misses accrue
+        (`_note_residual`)."""
         M = probe.buf_ids.shape[0]
         nm = min(probe.n_miss, M)
         ids = probe.buf_ids[:nm]
+        plain = (self._cache_rows, probe.buf_ids,
+                 (probe.hit.astype(np.int32), probe.cache_slot,
+                  probe.buf_slot), probe.n_miss, ids)
+        if self.pipeline_depth < 1:
+            return plain
         if self._staged_ids is None:
             # no staging buffer this tenure: every miss is residual —
             # accrue so the buffer can bootstrap the moment recurring
             # intent shows up
             self._note_residual(ids)
-            return None
+            return plain
         C = self._cache_rows.shape[0]
         pos = np.searchsorted(self._staged_ids, ids)
         posc = np.minimum(pos, self._staged_ids.size - 1)
@@ -830,7 +722,11 @@ class ServingRuntime:
         if self.attribution is not None:
             self.attribution.note_prefetch(n_hits, n_res)
         self._note_residual(ids[~stg])
-        return res_ids, staged_tok, ext_lut, res_lut, n_res
+        return (self._cache_ext, res_ids,
+                ((probe.hit | staged_tok).astype(np.int32),
+                 np.where(staged_tok, ext_lut[probe.buf_slot],
+                          probe.cache_slot),
+                 res_lut[probe.buf_slot]), n_res, res_ids[:n_res])
 
     def _refresh(self, res: ServeResult) -> None:
         self._cache_rows = self._refresh_rows(self._cache_ids,
@@ -865,15 +761,15 @@ class ServingRuntime:
         from the latency/throughput accounting (the miss trace always
         covers every round).
 
-        With double-buffered admission the loop is a one-slot pipeline:
-        the round's batch is probed and *dispatched*, then the previous
-        round's batch is blocked and bookkept — so the device executes
+        At ``pipeline_depth`` N >= 1 the loop is an N-slot pipeline: the
+        round's batch is probed and *dispatched*, then batches older than
+        the last N are blocked and bookkept — so the device executes
         batch t while the host enqueues, replans and probes batch t+1.
-        Serial mode blocks each batch in its own round (identical
-        results, no overlap)."""
+        Depth 0 blocks each batch in its own round (identical results, no
+        overlap)."""
         cfg = self.cfg
-        if cfg.managed and not self._calibrated:
-            self._calibrate_overlap()
+        if cfg.managed and not self._warmed:
+            self._warm_up()
         if warmup_backlog is None:
             warmup_backlog = self.replan_every + 2
         res = ServeResult()
@@ -994,33 +890,20 @@ class ServingRuntime:
                         owner_shards=self._owner_shards,
                         route_capacity=route_cap)
                 with tr.span("serve.split", a=rnd):
-                    staged_split = self._split_staged(probe)
+                    cache_rows, buf_ids, rows, n_miss, ids = \
+                        self._lookup_operands(probe)
                 with tr.span("serve.dispatch", a=rnd):
                     # one packed H2D transfer for the three (T,) index
-                    # arrays
-                    if staged_split is not None:
-                        res_ids, staged_tok, ext_lut, res_lut, n_res = \
-                            staged_split
-                        idx = self._to_dev(np.stack([
-                            (probe.hit | staged_tok).astype(np.int32),
-                            np.where(staged_tok,
-                                     ext_lut[probe.buf_slot],
-                                     probe.cache_slot),
-                            res_lut[probe.buf_slot]]))
-                        out = self._managed_fn(route_cap)(
-                            self.table, self._cache_ext,
-                            self._to_dev(res_ids), idx[0], idx[1], idx[2],
-                            n_res, res_ids[:n_res])
-                    else:
-                        idx = self._to_dev(np.stack([
-                            probe.hit.astype(np.int32), probe.cache_slot,
-                            probe.buf_slot]))
-                        out = self._managed_fn(route_cap)(
-                            self.table, self._cache_rows,
-                            self._to_dev(probe.buf_ids), idx[0], idx[1],
-                            idx[2], probe.n_miss,
-                            probe.buf_ids[:min(probe.n_miss,
-                                               probe.buf_ids.shape[0])])
+                    # rows; the name is resolved here, at call time, so a
+                    # caller that patches the module's lookup sees every
+                    # batch
+                    idx = self._to_dev(np.stack(rows))
+                    out = planned_serve_lookup(
+                        self.table, cache_rows, self._to_dev(buf_ids),
+                        idx[0], idx[1], idx[2], n_shards=cfg.n_shards,
+                        kernel=cfg.kernel, backend=self.backend,
+                        n_miss=n_miss, route_cap=self._route_block(
+                            ids, buf_ids.shape[0], route_cap))
                 with tr.span("serve.book", a=rnd):
                     hit_h = probe.hit.reshape(B, K)
                     over_h = probe.overflow.reshape(B, K)
@@ -1072,7 +955,10 @@ class ServingRuntime:
                     if n_zeroed:
                         self.telemetry.inc("serve.zero_served", n_zeroed)
             else:
-                out = self._plain_fn(self.table, self._to_dev(batch.tokens))
+                out = plain_serve_lookup(self.table,
+                                         self._to_dev(batch.tokens),
+                                         n_shards=cfg.n_shards,
+                                         backend=self.backend)
                 served_mask = np.ones(len(batch.reqs), bool)
                 served = batch.reqs
 

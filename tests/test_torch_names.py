@@ -85,6 +85,18 @@ DEPARTURES = {
     ("pm/collectives.py", "MeshBackend._check"):
         "the shard_map mesh's checks; the port's ModelGroup is checked "
         "where it is made (launch/mesh.py::make_model_mesh)",
+    ("serve/runtime.py", "ServingRuntime._calibrate_overlap"):
+        "the overlap calibration; an auto depth is the hill-climb's alone "
+        "and the untimed warm-up dispatch is ServingRuntime._warm_up",
+    ("serve/runtime.py", "ServingRuntime._overlap_backend_ok"):
+        "the calibration's device test, gone with it",
+    ("serve/runtime.py", "ServingRuntime.double_buffer"):
+        "the alias of pipeline_depth >= 1; the port has the depth alone",
+    ("serve/runtime.py", "ServingRuntime._managed_fn"):
+        "one jitted lookup per route cap; the port's round calls "
+        "planned_serve_lookup directly",
+    ("pm/controller.py", "overlap_pays"):
+        "the calibration's threshold, gone with it",
 }
 
 

@@ -91,6 +91,10 @@ def test_traced_attribution_matches_jax():
     prt.run(replay(P), ROUNDS)
     want = [r.to_json() for r in jrt.attribution.records]
     got = [r.to_json() for r in prt.attribution.records]
+    for r in want:
+        # the reference still reports the depth's old one-slot alias
+        assert r["knobs"].pop("double_buffer") == \
+            (r["knobs"]["pipeline_depth"] >= 1)
     assert len(got) == len(want) > 0
     assert got == want
     for c in ("serve.replans", "serve.refreshes", "serve.refresh_skipped",
@@ -100,6 +104,57 @@ def test_traced_attribution_matches_jax():
         assert prt.telemetry.counter_value(c) == \
             jrt.telemetry.counter_value(c), c
     assert "serve shutdown report" in prt.report()
+
+
+def watched_run(**kw):
+    """A run whose lookups go through a patch of the module's name, as
+    the benchmark's check of served rows patches it; each call is noted
+    as "warm" before the stream's first arrivals and "batch" after."""
+    from repro_torch.serve import runtime as rt_mod
+    calls, lookup = [], rt_mod.planned_serve_lookup
+    stream = replay(P)
+    arrivals = stream.arrivals
+
+    def asked(r):
+        calls.append("arrivals")
+        return arrivals(r)
+
+    def watched(*args, **kwargs):
+        calls.append("batch" if "arrivals" in calls else "warm")
+        return lookup(*args, **kwargs)
+
+    stream.arrivals = asked
+    rt = P.ServingRuntime(table(), config(P, cache_capacity=64, n_shards=4,
+                                          **kw), device="cpu")
+    rt_mod.planned_serve_lookup = watched
+    try:
+        res = rt.run(stream, ROUNDS)
+    finally:
+        rt_mod.planned_serve_lookup = lookup
+    return rt, res, [c for c in calls if c != "arrivals"]
+
+
+@pytest.mark.parametrize("depth", [0, "auto"])
+def test_every_batch_goes_through_the_module_lookup(depth):
+    """Every managed batch, staged (depth >= 1) or not (depth 0), goes
+    through the module-level `planned_serve_lookup`, after exactly one
+    warm-up call made before the stream's first arrivals.  With
+    ``pipeline_depth="auto"`` the depth has one owner: the controller's
+    one knob, which nothing forces."""
+    rt, res, calls = watched_run(pipeline_depth=depth)
+    assert calls[0] == "warm" and calls.count("warm") == 1
+    assert calls.count("batch") == len(res.miss_trace) > 0
+    staged = rt.telemetry.counter_value("serve.prefetch_hits")
+    if depth == 0:
+        assert staged == 0 and rt._ctl is None
+        return
+    assert staged > 0
+    assert list(rt._ctl.knobs) == ["pipeline_depth"]
+    assert rt.pipeline_depth == rt._ctl.value("pipeline_depth")
+    assert not rt.telemetry.events("ctl.force")
+    assert set(rt.current_knobs()) == {"cache_capacity", "replan_every",
+                                       "refresh_every", "batch_requests",
+                                       "pipeline_depth"}
 
 
 def test_plain_versions_match_jax_too():

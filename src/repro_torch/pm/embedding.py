@@ -418,45 +418,65 @@ def _route_overflow(hit, buf_ids, buf_slot, overflow, n_miss: int,
 
 
 class CacheProbeView:
-    """Memoized host probe for ONE cache generation.
+    """Host probe that follows the replica cache from one generation to
+    the next.
 
     `probe_host` re-derives the probe from scratch on every batch — one
     argsort of the batch tokens PLUS a binary search of every token
     against the sorted cache ids — even though the cache ids only change
-    once per refresh/replan round.  This view pays one O(V) lookup-table
-    build when the cache generation changes and then probes each batch
-    with two vectorized table reads; the only per-batch sort left is the
-    `np.unique` over the batch's missed tokens, which any compaction
-    needs.  Every `HostProbe` field is byte-identical to `probe_host`
-    — `np.unique` returns the missed
-    ids ascending with duplicates sharing one inverse slot, exactly
-    `_compact_math`'s miss-group ranks."""
+    once per refresh/replan round.  This view keeps one table for its
+    whole life, ``slot_of[v]``: the cache row of id ``v``, or -1 when
+    ``v`` is not cached.  A new generation (`advance`) clears the rows
+    that left and sets the rows that entered, O(C) table writes and
+    never O(V); a batch then probes with one table read, plus one binary
+    search of its missed tokens against the cache ids, O(T_miss log C),
+    for the clipped slot `probe_host` reports on a miss.  The only
+    per-batch sort left is the `np.unique` over the batch's missed
+    tokens, which any compaction needs.  Every `HostProbe` field is
+    byte-identical to `probe_host` — `np.unique` returns the missed ids
+    ascending with duplicates sharing one inverse slot, exactly
+    `_compact_math`'s miss-group ranks.
 
-    def __init__(self, cache_ids: np.ndarray, vocab: int):
+    ``cache_ids`` is sorted ascending and padded with ``vocab``
+    (`PlacementPlan.cache_ids`); the pads never enter the table.  With a
+    ``telemetry`` bus, `advance` adds the table entries it writes
+    (cleared plus set) to the counter ``serve.probe_rows``."""
+
+    def __init__(self, cache_ids: np.ndarray, vocab: int, *,
+                 telemetry=None):
+        self.vocab = int(vocab)
+        self.telemetry = telemetry
+        self._slot_of = np.full(self.vocab, -1, np.int32)
+        self._real = np.zeros(0, np.int32)   # the table's cached ids
+        self.advance(cache_ids)
+
+    def advance(self, cache_ids: np.ndarray) -> None:
+        """Move the table to the cache generation ``cache_ids``, whose
+        length may differ from the last one's."""
         cache_ids = np.asarray(cache_ids)
         self.cache_ids = cache_ids
-        self.vocab = int(vocab)
-        C = cache_ids.shape[0]
-        vals = np.arange(self.vocab, dtype=cache_ids.dtype)
-        if C:
-            slot = np.clip(np.searchsorted(cache_ids, vals),
-                           0, C - 1).astype(np.int32)
-            self._slot_lut = slot
-            self._hit_lut = cache_ids[slot] == vals
-        else:
-            self._slot_lut = np.zeros(self.vocab, np.int32)
-            self._hit_lut = np.zeros(self.vocab, bool)
+        real = cache_ids[:np.searchsorted(cache_ids, self.vocab)]
+        self._slot_of[self._real] = -1
+        self._slot_of[real] = np.arange(real.shape[0], dtype=np.int32)
+        if self.telemetry is not None:
+            self.telemetry.inc("serve.probe_rows",
+                               self._real.shape[0] + real.shape[0])
+        self._real = real
 
     def probe(self, tok, miss_capacity: int, *, owner_shards: int = 0,
               route_capacity: int = 0) -> HostProbe:
-        """`probe_host(self.cache_ids, tok, ...)`, via the LUTs."""
+        """`probe_host(self.cache_ids, tok, ...)`, via the table."""
         tok = np.asarray(tok, dtype=np.int32)
         T = tok.shape[0]
         M = miss_capacity
-        cache_slot = self._slot_lut[tok]
-        hit = self._hit_lut[tok]
+        cache_slot = self._slot_of[tok]
+        hit = cache_slot >= 0
         miss = ~hit
-        uniq, inverse = np.unique(tok[miss], return_inverse=True)
+        missed = tok[miss]
+        C = self.cache_ids.shape[0]
+        cache_slot[miss] = (np.clip(np.searchsorted(self.cache_ids, missed),
+                                    0, C - 1) if C else 0)
+        uniq, inverse = np.unique(missed, return_inverse=True)
         n_miss = int(uniq.shape[0])
         k = min(n_miss, M)
         buf_ids = np.zeros(M, np.int32)
@@ -471,7 +491,6 @@ class CacheProbeView:
                                        route_capacity, self.vocab)
         return HostProbe(hit, cache_slot, buf_ids, buf_slot, overflow,
                          n_miss)
-
 
 
 def planned_serve_lookup(table, cache_rows, buf_ids, hit, cache_slot,

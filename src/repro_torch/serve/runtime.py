@@ -301,8 +301,8 @@ class ServingRuntime:
         self._cache_ids = None           # device copy (refresh input)
         self._cache_ids_np = None        # host copy (admission-time probe)
         self._cache_rows = None
-        # memoized probe LUTs, rebuilt once per cache generation (the
-        # per-batch probe then never re-sorts the cache side)
+        # the probe's id -> cache-row table, one for the runtime's life
+        # (the per-batch probe then never re-sorts the cache side)
         self._probe_view: Optional[CacheProbeView] = None
         # staged prefetch (pipeline_depth >= 1): the tenure's predicted
         # miss rows, gathered once per replan/refresh instead of riding
@@ -519,11 +519,15 @@ class ServingRuntime:
             with tr.span("serve.plan.refresh", a=rnd):
                 self._cache_ids_np = self.plan.cache_ids
                 self._cache_ids = self._to_dev(self.plan.cache_ids)
-                # new cache generation: rebuild the memoized probe LUTs
-                # once (the per-batch probe never re-sorts the cache side
-                # again)
-                self._probe_view = CacheProbeView(self._cache_ids_np,
-                                                  self.cfg.vocab)
+                # new cache generation: the probe's table moves by the
+                # rows that left and entered, O(C) and never O(V); each
+                # batch then adds one O(T_miss log C) search of its misses
+                if self._probe_view is None:
+                    self._probe_view = CacheProbeView(
+                        self._cache_ids_np, self.cfg.vocab,
+                        telemetry=self.telemetry)
+                else:
+                    self._probe_view.advance(self._cache_ids_np)
                 self._staged_ids = None  # rebuilt below for the new tenure
                 self._refresh(res)
         # per-tenure staged prefetch (DESIGN.md §15): the snapshot's
@@ -882,8 +886,8 @@ class ServingRuntime:
                                  self.plan.miss_capacity)
                              if self._owner_shards else 0)
                 with tr.span("serve.probe", a=rnd):
-                    # memoized LUT probe — byte-identical to `probe_host`
-                    # on this cache generation (tests/test_prefetch.py)
+                    # table probe — byte-identical to `probe_host` on
+                    # this cache generation (tests/test_torch_probe.py)
                     probe = self._probe_view.probe(
                         batch.tokens.reshape(B * K),
                         self.plan.miss_capacity,

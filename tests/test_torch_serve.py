@@ -81,6 +81,32 @@ def test_runtime_matches_jax(name):
         assert got.capacity_resizes > 0
 
 
+@pytest.mark.parametrize("name", ["auto-capacity", "staging-constrained"])
+def test_runtime_keeps_one_probe_view(name):
+    """The runtime builds its probe view at the first cache generation
+    and advances that one object on every later replan, writing the
+    rows that moved (`serve.probe_rows`), so that after the run its
+    table is the one a fresh view of the last generation builds."""
+    cfg_kw, stream_kw = CASES[name]
+    rt = P.ServingRuntime(table(), config(P, **cfg_kw), device="cpu")
+    views, replan = [], rt._replan
+
+    def noted(*args, **kwargs):
+        replan(*args, **kwargs)
+        views.append(rt._probe_view)
+
+    rt._replan = noted
+    res = rt.run(replay(P, **stream_kw), ROUNDS)
+    assert res.refreshes > 1 and len(views) == res.replans
+    assert all(v is views[0] for v in views)
+    rows = rt.telemetry.counter_value("serve.probe_rows")
+    assert 0 < rows < res.refreshes * V
+    fresh = P.runtime.CacheProbeView(rt._cache_ids_np, V)
+    np.testing.assert_array_equal(views[0]._slot_of, fresh._slot_of)
+    if name == "auto-capacity":
+        assert res.capacity_resizes > 0
+
+
 def test_traced_attribution_matches_jax():
     """With span tracing on, the plan-vs-actual attribution records (one
     per replan boundary) agree, and the shutdown report renders."""
